@@ -1,0 +1,5 @@
+from mlmcpathintegral_tpu_torch.conditioned.base import ConditionedFineAction
+from mlmcpathintegral_tpu_torch.conditioned.schwinger import (
+    QuenchedSchwingerConditionedFineAction,
+    make_schwinger_conditioned_fine_action,
+)

@@ -1,0 +1,12 @@
+from mlmcpathintegral_tpu_torch.distributions.approxbesselproduct import (
+    ApproximateBesselProductDistribution,
+)
+from mlmcpathintegral_tpu_torch.distributions.besselproduct import (
+    BesselProductDistribution,
+)
+from mlmcpathintegral_tpu_torch.distributions.expcos import (
+    ExpCosDistribution,
+)
+from mlmcpathintegral_tpu_torch.distributions.rejection import (
+    batched_rejection_sample,
+)

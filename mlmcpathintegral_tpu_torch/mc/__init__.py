@@ -1,0 +1,4 @@
+from mlmcpathintegral_tpu_torch.mc.multilevel import MonteCarloMultiLevel
+from mlmcpathintegral_tpu_torch.mc.twolevelstep import (
+    TwoLevelMetropolisStep, TwoLevelState,
+)

@@ -1,0 +1,566 @@
+"""Full multilevel Monte Carlo (MLMC) with the telescoping estimator,
+fused path (PyTorch port of ``mlmcpathintegral_tpu/mc/multilevel.py``;
+reference src/montecarlo/montecarlomultilevel.{hh,cc}).
+
+Per level ell < L-1 the estimator measures Y_ell = Q_ell(theta_ell) -
+Q_{ell+1}(theta_{ell+1}), where theta_{ell+1} is a tau-subsampled coarse
+sample and theta_ell comes from one two-level Metropolis screening; the
+coarsest level measures Y_{L-1} = Q_{L-1}.  The result is
+sum_ell mean(Y_ell) with error sqrt(sum err_ell^2).
+
+Every level runs a fused kernel: the fine levels the two-level chain
+(ops/schwinger_twolevel.py), the coarsest level the sweep chain
+(ops/schwinger.py).  Each chunk of ``chunk_size`` recorded samples is one
+kernel launch plus the statistics update, with its seed pair (int32[2])
+drawn from the run's ``torch.Generator``; the host runs the adaptive
+outer loop.  Configurations the JAX package runs on its unfused XLA path
+(other actions or coarse samplers, other coarsening, fields that do not
+fit one block's shared memory) raise NotImplementedError: the first three
+when the driver is built, the last at the first launch on the card
+(``ops._cuda.check_smem``).
+
+Adaptive sample allocation (montecarlomultilevel.cc:147-164):
+  N_ell = ceil( 2/eps^2 * S * sqrt(V_ell / C_ell^eff) * tau_ell ),
+  S = sum_ell sqrt(V_ell * C_ell^eff),  C_ell^eff = ceil(tau_ell) C_ell
+with per-sample costs C_ell timed on the warm kernels.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelMetropolisStep
+from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
+from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
+from mlmcpathintegral_tpu_torch.utils.timer import sync
+
+
+class MonteCarloMultiLevel:
+
+    #: max in-kernel coarse sweeps per launch: bounds the trace buffers
+    #: and the single-launch runtime
+    LAUNCH_SWEEP_BUDGET = 8192
+
+    #: minimum in-kernel coarse sweeps per recorded sample on fused
+    #: levels.  Delayed acceptance is exact only for independent coarse
+    #: proposals; ceil(2 tau_QoI) under-decorrelates the heat-bath
+    #: configuration at weak coupling and measurably biased the screened
+    #: chain at 8x8 beta=4 (t_sub=4 vs 8)
+    FUSED_T_SUB_MIN = 8
+
+    def __init__(self, fine_action, qoi_factory, coarse_sampler_factory,
+                 conditioned_fine_action_factory, *,
+                 n_level: int, epsilon: float = 1e-2, n_burnin: int = 100,
+                 n_samples: int = 0, n_autocorr_window: int = 20,
+                 n_min_samples_qoi: int = 100, chunk_size: int = 128,
+                 use_pallas: bool = True, t_max: int = 100):
+        self.n_level = int(n_level)
+        self.epsilon = float(epsilon)
+        self.n_burnin = int(n_burnin)
+        self.n_samples = int(n_samples)   # fixed per-level target if > 0
+        self.n_min_samples_qoi = int(n_min_samples_qoi)
+        self.chunk_size = int(chunk_size)
+        #: the fused kernels, as in the JAX package's API; False asks for
+        #: the unfused path, which is not ported yet and raises
+        self.use_pallas = bool(use_pallas)
+        self.t_max = int(t_max)
+
+        # the action hierarchy + per-level machinery
+        # (montecarlomultilevel.cc:26-68)
+        self.actions = [fine_action]
+        self.twolevel_steps = []
+        self.coarse_samplers = []     # sampler feeding level ell (on ell+1)
+        for ell in range(self.n_level - 1):
+            coarse = self.actions[ell].coarse_action()
+            cond = conditioned_fine_action_factory(self.actions[ell])
+            self.twolevel_steps.append(
+                TwoLevelMetropolisStep(coarse, self.actions[ell], cond))
+            self.actions.append(coarse)
+            self.coarse_samplers.append(coarse_sampler_factory(coarse))
+        self.coarsest_sampler = coarse_sampler_factory(self.actions[-1])
+        self.qois = [qoi_factory(a) for a in self.actions]
+        self.stats_qoi = [Statistics(f"Y[{ell}]", n_autocorr_window)
+                          for ell in range(self.n_level)]
+        self.stats_cs = [Statistics(f"Q_sampler[{ell}]", n_autocorr_window)
+                         for ell in range(self.n_level - 1)]
+        #: slow-mode (plaquette-energy) statistics of the in-kernel coarse
+        #: chains: the t_sub clock runs on max(tau_QoI, tau_slow)
+        self.stats_slow = [Statistics(f"E_sampler[{ell}]",
+                                      n_autocorr_window)
+                           for ell in range(self.n_level)]
+        self._setup_fused()
+
+    # -- fused path (Schwinger, both-coarsening) ------------------------------
+
+    def _fused_level(self, ell: int) -> bool:
+        """Level ell (< L-1) runs the fused two-level kernel?"""
+        if not self.use_pallas:
+            return False
+        from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
+            QuenchedSchwingerAction,
+        )
+        act = self.actions[ell]
+        if type(act) is not QuenchedSchwingerAction:
+            return False
+        if not self._factory_is_heatbath(self.coarse_samplers[ell]):
+            return False
+        lat = act.lattice
+        return (act._coarsen_case() == "both"
+                and lat.Mt_lat % 2 == 0 and lat.Mx_lat % 2 == 0)
+
+    def _fused_coarsest(self) -> bool:
+        if not self.use_pallas:
+            return False
+        from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
+            QuenchedSchwingerAction,
+        )
+        if not self._factory_is_heatbath(self.coarsest_sampler):
+            return False
+        return type(self.actions[-1]) is QuenchedSchwingerAction
+
+    @staticmethod
+    def _factory_is_heatbath(sampler) -> bool:
+        from mlmcpathintegral_tpu_torch.samplers.heatbath import (
+            OverrelaxedHeatBathSampler,
+        )
+        return isinstance(sampler, OverrelaxedHeatBathSampler)
+
+    def _setup_fused(self):
+        """Check that every level runs fused, swap in heat-bath coarse
+        samplers for the fused levels (the in-kernel coarse chain is the
+        heat bath; the sampler object only initialises and burns in) and
+        start the per-level subsampling rates at the floor."""
+        self._t_sub = [self.FUSED_T_SUB_MIN] * self.n_level
+        unfused = [ell for ell in range(self.n_level - 1)
+                   if not self._fused_level(ell)]
+        if not self._fused_coarsest():
+            unfused.append(self.n_level - 1)
+        if unfused:
+            raise NotImplementedError(
+                f"levels {unfused} would run the unfused path (use_pallas="
+                f"False, a non-Schwinger action, a non-heat-bath coarse "
+                f"sampler or non-BOTH coarsening); the unfused multilevel "
+                f"path is a later slice (ROADMAP.md, item 9 under 'Later "
+                f"slices')")
+        from mlmcpathintegral_tpu_torch.samplers.heatbath import (
+            OverrelaxedHeatBathSampler,
+        )
+        for ell in range(self.n_level - 1):
+            self.coarse_samplers[ell] = OverrelaxedHeatBathSampler(
+                self.actions[ell + 1], n_sweep_heatbath=1,
+                n_sweep_overrelax=1, n_burnin=self.n_burnin)
+        self.coarsest_sampler = OverrelaxedHeatBathSampler(
+            self.actions[-1], n_sweep_heatbath=1, n_sweep_overrelax=1,
+            n_burnin=self.n_burnin)
+
+    def _level_chunk(self, ell: int) -> int:
+        """Per-launch recorded samples for level ell: the configured
+        chunk_size, reduced when the level's t_sub would make one fused
+        launch exceed LAUNCH_SWEEP_BUDGET coarse sweeps."""
+        t_sub = self._t_sub[ell if ell < self.n_level - 1 else -1]
+        return max(8, min(self.chunk_size,
+                          self.LAUNCH_SWEEP_BUDGET // max(t_sub, 1)))
+
+    def _make_fused_chunk(self, ell: int, t_sub: int):
+        """Fused two-level chunk for level ell at subsampling rate t_sub:
+        ``chunk(seed, carry, n_active) -> (carry, ybar)``."""
+        from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import (
+            schwinger_twolevel_chain,
+        )
+        act, cact = self.actions[ell], self.actions[ell + 1]
+        lat = act.lattice
+        chunk_size = self._level_chunk(ell)
+        four_pi2_inv = 1.0 / (4.0 * math.pi ** 2)
+        # analytic per-sweep plaquette-energy mean of the coarse chain,
+        # N_cells * I1(beta_c)/I0(beta_c): the slow-mode trace is recorded
+        # centred so the f32 autocorrelation sums stay well-conditioned
+        from scipy.special import i0e, i1e
+        clat = cact.lattice
+        ec_center = float(clat.Mt_lat * clat.Mx_lat
+                          * i1e(cact.beta) / i0e(cact.beta))
+
+        def chunk(seed, carry, n_active):
+            cstate, tl, st_y, st_cs, st_slow, t_accum = carry
+            thf, thc, sf, sq, y, qc, ec, acc = schwinger_twolevel_chain(
+                tl.theta, cstate.x, tl.S_fine, tl.S_cond, seed,
+                beta=act.beta, beta_c=cact.beta,
+                Mt=lat.Mt_lat, Mx=lat.Mx_lat,
+                n_steps=chunk_size, t_sub=t_sub)
+            st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
+            st_cs = stats_mod.record_many(st_cs, four_pi2_inv * qc * qc)
+            st_slow = stats_mod.record_many(st_slow, ec - ec_center)
+            sum_t, n_indep = t_accum
+            t_accum = (sum_t + t_sub * chunk_size,
+                       n_indep + float(chunk_size))
+            cstate = type(cstate)(x=thc)
+            tl_new = type(tl)(theta=thf, S_fine=sf, S_cond=sq)
+            # per-step cross-chain Y mean: the series behind the binning
+            # cross-check of a window-capped tau
+            return (cstate, tl_new, st_y, st_cs, st_slow, t_accum), \
+                torch.mean(y, dim=1)
+
+        return chunk
+
+    def _make_fused_chunk_L(self, t_sub: int):
+        """Fused coarsest-level chunk: chunk_size tau-subsampled
+        measurements driven by the sweep-chain kernel."""
+        from mlmcpathintegral_tpu_torch.ops.schwinger import (
+            schwinger_sweep_chain,
+        )
+        cact = self.actions[-1]
+        lat = cact.lattice
+        chunk_size = self._level_chunk(self.n_level - 1)
+        four_pi2_inv = 1.0 / (4.0 * math.pi ** 2)
+        from scipy.special import i0e, i1e
+        ec_center = float(lat.Mt_lat * lat.Mx_lat
+                          * i1e(cact.beta) / i0e(cact.beta))
+
+        def chunk_L(seed, carry, n_active):
+            cstate, st_y, st_cs, st_slow, t_accum = carry
+            x, qsum, esum = schwinger_sweep_chain(
+                cstate.x, seed, beta=cact.beta,
+                Mt=lat.Mt_lat, Mx=lat.Mx_lat,
+                n_steps=chunk_size * t_sub, with_energy=True)
+            qoi = four_pi2_inv * qsum * qsum       # [chunk*t_sub, C]
+            st_cs = stats_mod.record_many(st_cs, qoi)
+            st_slow = stats_mod.record_many(st_slow, esum - ec_center)
+            y = qoi[t_sub - 1::t_sub]              # [chunk, C]
+            st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
+            sum_t, n_indep = t_accum
+            t_accum = (sum_t + t_sub * chunk_size,
+                       n_indep + float(chunk_size))
+            return (type(cstate)(x=x), st_y, st_cs, st_slow, t_accum), \
+                torch.mean(y, dim=1)
+
+        return chunk_L
+
+    def _update_t_sub(self, carries, carry_L):
+        """Re-estimate the per-level coarse subsampling rates from
+        max(tau_QoI, tau_slow) of the in-kernel coarse chain — the slow
+        configuration mode is measured rather than assumed
+        (FUSED_T_SUB_MIN stays as the backstop).  Adapts between
+        chunks."""
+        def quantised(tau):
+            # round ceil(2 tau) up to a power of two (extra decorrelation
+            # is harmless), floor at FUSED_T_SUB_MIN, cap at t_max
+            t = min(self.t_max, max(self.FUSED_T_SUB_MIN,
+                                    math.ceil(2.0 * tau)))
+            return min(1 << (t - 1).bit_length(), self.t_max)
+
+        def ratchet(cur, new):
+            # change only when the rate is too small or >= 4x too large
+            return new if (new > cur or new * 4 <= cur) else cur
+
+        for ell in range(self.n_level - 1):
+            tau = max(self.stats_cs[ell].tau_int(carries[ell][3]),
+                      self.stats_slow[ell].tau_int(carries[ell][4]))
+            self._t_sub[ell] = ratchet(self._t_sub[ell], quantised(tau))
+        stats_L = Statistics("cs_L", self.stats_qoi[-1].k_max)
+        tau = max(stats_L.tau_int(carry_L[2]),
+                  self.stats_slow[-1].tau_int(carry_L[3]))
+        self._t_sub[-1] = ratchet(self._t_sub[-1], quantised(tau))
+
+    def _chunk(self, ell: int):
+        """The chunk function of level ell at its current t_sub (building
+        one is cheap: no compilation on this path)."""
+        if ell == self.n_level - 1:
+            return self._make_fused_chunk_L(self._t_sub[-1])
+        return self._make_fused_chunk(ell, self._t_sub[ell])
+
+    # -------------------------------------------------------------------------
+
+    def evaluate(self, generator, n_chains: int, dtype=torch.float32,
+                 device="cpu", verbose: bool = False):
+        """Run the full MLMC estimation.  ``generator``: a CPU
+        ``torch.Generator`` (or an int seed for one) from which every
+        kernel seed pair and the set-up noise are drawn; ``device``: where
+        the chains live ("cuda" runs the kernels, which take float32;
+        "cpu" their plain versions, in any float dtype).  Returns the
+        per-level Y statistics states."""
+        t_start = time.monotonic()
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator().manual_seed(int(generator))
+        device = torch.device(device)
+        self.timings = {}   # wall-clock per phase
+        L = self.n_level
+
+        def next_seed():
+            return torch.randint(-2**31, 2**31 - 1, (2,), generator=generator,
+                                 dtype=torch.int32)
+
+        # set-up noise is drawn on the device by a generator seeded from
+        # the run's generator
+        setup_gen = torch.Generator(device=device)
+        setup_gen.manual_seed(int(torch.randint(
+            2**62, (1,), generator=generator)))
+
+        carries, carry_L = self.init_carries(setup_gen, n_chains, dtype,
+                                             device)
+        self.timings["prepare_s"] = time.monotonic() - t_start
+
+        self.chunk_log = []   # (ell, n_chunks, dispatch_s, block_s)
+        self._reset_ybar(L)
+
+        def run_level(ell, carry, n_more):
+            """Record n_more further samples on level ell.  n_more=0
+            dispatches ONE chunk recording nothing (a warm-up whose chain
+            steps are extra decorrelation)."""
+            done = 0
+            t_d0 = time.monotonic()
+            n_chunks = 0
+            c_ell = self._level_chunk(ell)
+            chunk = self._chunk(ell)
+            while done < n_more or (n_more == 0 and n_chunks == 0):
+                n = min(c_ell, n_more - done)
+                carry, ybar = chunk(next_seed(), carry, n)
+                if n > 0:
+                    self._ybar_history[ell].append(ybar[:n])
+                done += n
+                n_chunks += 1
+            t_d1 = time.monotonic()
+            sync(carry)
+            self.chunk_log.append((ell, n_chunks, round(t_d1 - t_d0, 4),
+                                   round(time.monotonic() - t_d1, 4)))
+            return carry
+
+        def warm_all_levels(carries, carry_L):
+            """One n_active=0 chunk per level, coarsest first: the first
+            launch of each kernel at the current t_sub (module load,
+            first-touch allocations) lands outside the timed phases; its
+            chain steps are extra decorrelation."""
+            carry_L = run_level(L - 1, carry_L, 0)
+            for ell in range(L - 2, -1, -1):
+                carries[ell] = run_level(ell, carries[ell], 0)
+            return carries, carry_L
+
+        t_phase = time.monotonic()
+        carries, carry_L = warm_all_levels(carries, carry_L)
+        self.timings["compile_burnin_s"] = time.monotonic() - t_phase
+
+        # burn-in on every level, coarsest to finest
+        # (montecarlomultilevel.cc:83-100)
+        t_phase = time.monotonic()
+        burn_local = -(-self.n_burnin // n_chains)
+        for ell in range(L - 1, -1, -1):
+            if ell == L - 1:
+                carry_L = run_level(ell, carry_L, burn_local)
+            else:
+                carries[ell] = run_level(ell, carries[ell], burn_local)
+        # soft reset of the Y statistics: long-term moments stay for tau
+        carries = [(cs, tl, stats_mod.soft_reset(st_y), st_cs, st_sl, ta)
+                   for (cs, tl, st_y, st_cs, st_sl, ta) in carries]
+        carry_L = (carry_L[0], stats_mod.soft_reset(carry_L[1]),
+                   carry_L[2], carry_L[3], carry_L[4])
+        self._reset_ybar(L)
+        if verbose:
+            print("Burnin completed")
+        sync(carry_L)
+        self.timings["burnin_s"] = time.monotonic() - t_phase
+
+        # adapt the subsampling rates to the coarse-chain tau learned
+        # during burn-in, then warm the re-parametrised kernels
+        t_phase = time.monotonic()
+        self._update_t_sub(carries, carry_L)
+        self.timings["tsub_update_s"] = time.monotonic() - t_phase
+        t_phase = time.monotonic()
+        carries, carry_L = warm_all_levels(carries, carry_L)
+        self.timings["compile_cost_s"] = time.monotonic() - t_phase
+
+        # per-sample cost of each level kernel; its recorded samples count
+        # toward the targets
+        t_cost0 = time.monotonic()
+        self.cost_per_sample = []
+        for ell in range(L):
+            n_probe = self._level_chunk(ell)
+            t0 = time.monotonic()
+            if ell == L - 1:
+                carry_L = run_level(ell, carry_L, n_probe)
+            else:
+                carries[ell] = run_level(ell, carries[ell], n_probe)
+            per = (time.monotonic() - t0) / (n_probe * n_chains)
+            self.cost_per_sample.append(per * 1e6)   # micro-seconds
+        self.timings["cost_measure_s"] = time.monotonic() - t_cost0
+
+        # adaptive loop (montecarlomultilevel.cc:113-169)
+        two_eps_inv2 = 2.0 / (self.epsilon * self.epsilon)
+        n_target = [self.n_min_samples_qoi] * L
+        if self.n_samples > 0:
+            n_target = [self.n_samples] * L
+
+        def st_y_of(ell):
+            return carry_L[1] if ell == L - 1 else carries[ell][2]
+
+        while True:
+            for ell in range(L - 1, -1, -1):
+                have = self.stats_qoi[ell].samples(st_y_of(ell))
+                want = n_target[ell]
+                if have < want:
+                    n_more = -(-(want - have) // n_chains)
+                    if ell == L - 1:
+                        carry_L = run_level(ell, carry_L, n_more)
+                    else:
+                        carries[ell] = run_level(ell, carries[ell], n_more)
+            if self.n_samples > 0:
+                # fixed per-level target: one pass fills every level
+                break
+            self._update_t_sub(carries, carry_L)
+            V, tau, C_eff = [], [], []
+            for ell in range(L):
+                st_y = st_y_of(ell)
+                V.append(max(self.stats_qoi[ell].variance(st_y), 0.0))
+                t = self.stats_qoi[ell].tau_int(st_y)
+                if self.stats_qoi[ell].window_capped(st_y):
+                    # windowed tau is a lower bound: cross-check with the
+                    # binning estimate
+                    t = max(t, self._tau_binning_level(ell))
+                tau.append(t)
+                C_eff.append(math.ceil(tau[ell]) * self.cost_per_sample[ell])
+            S = sum(math.sqrt(v * c) for v, c in zip(V, C_eff))
+            n_target = [
+                max(self.n_min_samples_qoi,
+                    math.ceil(two_eps_inv2 * S
+                              * math.sqrt(V[ell] / max(C_eff[ell], 1e-12))
+                              * tau[ell]))
+                for ell in range(L)]
+            if all(self.stats_qoi[ell].samples(st_y_of(ell)) >= n_target[ell]
+                   for ell in range(L)):
+                break
+        self.n_target = n_target
+        self.elapsed_s = time.monotonic() - t_start
+        self.timings["sampling_s"] = (self.elapsed_s
+                                      - sum(self.timings.values()))
+
+        stats = [st_y_of(ell) for ell in range(L)]
+        self._final_stats = stats
+        #: learned slow-mode (plaquette-energy) tau per level — the
+        #: quantity the t_sub clock ran on
+        self.tau_slow = [
+            self.stats_slow[ell].tau_int(carry_L[3] if ell == L - 1
+                                         else carries[ell][4])
+            for ell in range(L)]
+        self.reliability = self._assess_reliability(stats)
+        return stats
+
+    def init_carries(self, setup_gen, n_chains: int, dtype, device):
+        """The per-level chunk carries ``(carries, carry_L)`` from which
+        :meth:`evaluate` starts: sampler prepare (incl. burn-in),
+        prolongate + conditioned fill of the initial coarse sample (a
+        draw from q), cached action values, empty statistics.  The set-up
+        noise comes from ``setup_gen``, a generator on ``device``."""
+        L = self.n_level
+        carries = []
+        for ell in range(L - 1):
+            sampler = self.coarse_samplers[ell]
+            cstate = sampler.prepare(setup_gen, n_chains, dtype, device)
+            xc = sampler.x_of(cstate)
+            x_fine = self.actions[ell].initialise_state(setup_gen, n_chains,
+                                                        dtype, device)
+            x_fine = self.actions[ell].prolongate(xc, x_fine)
+            x_fine = self.twolevel_steps[ell].conditioned_fine_action \
+                .fill_fine_points(setup_gen, x_fine)
+            tl = self.twolevel_steps[ell].init(x_fine)
+            sync(tl)
+            st_y = self.stats_qoi[ell].init(n_chains, dtype, device)
+            st_cs = self.stats_cs[ell].init(n_chains, dtype, device)
+            st_slow = self.stats_slow[ell].init(n_chains, dtype, device)
+            carries.append((cstate, tl, st_y, st_cs, st_slow,
+                            self._zero_accum(dtype, device)))
+        cstate = self.coarsest_sampler.prepare(setup_gen, n_chains, dtype,
+                                               device)
+        st_y = self.stats_qoi[L - 1].init(n_chains, dtype, device)
+        st_cs_L = Statistics("cs_L", self.stats_cs[0].k_max
+                             if self.stats_cs else 20).init(
+            n_chains, dtype, device)
+        st_slow_L = self.stats_slow[-1].init(n_chains, dtype, device)
+        carry_L = (cstate, st_y, st_cs_L, st_slow_L,
+                   self._zero_accum(dtype, device))
+        sync(carry_L)
+        return carries, carry_L
+
+    @staticmethod
+    def _zero_accum(dtype, device):
+        """(sum of t_sub, number of independent samples) counters."""
+        return (torch.zeros((), dtype=dtype, device=device),
+                torch.zeros((), dtype=dtype, device=device))
+
+    # -------------------------------------------------------------------------
+
+    def _reset_ybar(self, L: int):
+        self._ybar_history = [[] for _ in range(L)]
+        #: per-level (concatenated float64 host series, #chunks consumed)
+        self._ybar_cache = [(np.empty(0), 0) for _ in range(L)]
+
+    def _tau_binning_level(self, ell) -> float:
+        """Binning tau estimate of level ell's recorded Y series (the
+        per-step cross-chain means collected by run_level); chunks are
+        copied to the host once, incrementally."""
+        hist = self._ybar_history[ell]
+        cache, used = self._ybar_cache[ell]
+        if len(hist) > used:
+            new = [h.double().cpu().numpy() for h in hist[used:]]
+            cache = np.concatenate(([cache] if cache.size else []) + new)
+            for i in range(used, len(hist)):
+                hist[i] = None
+            self._ybar_cache[ell] = (cache, len(hist))
+        if cache.size == 0:
+            return 1.0
+        return stats_mod.tau_binning(cache)
+
+    def _assess_reliability(self, stats):
+        """Per-level reliability report: window_capped and a binning
+        cross-check of tau; a level is flagged when its windowed tau is
+        capped AND the binning estimate exceeds it by >1.5x."""
+        out = []
+        for ell in range(self.n_level):
+            st_y = stats[ell]
+            capped = self.stats_qoi[ell].window_capped(st_y)
+            tau_w = self.stats_qoi[ell].tau_int(st_y)
+            tau_b = self._tau_binning_level(ell) if capped else None
+            tau_eff = max(tau_w, tau_b) if tau_b is not None else tau_w
+            out.append({
+                "level": ell,
+                "window_capped": bool(capped),
+                "tau_int": float(tau_w),
+                "tau_binning": (None if tau_b is None else float(tau_b)),
+                "tau_eff": float(tau_eff),
+                "flagged": bool(capped and tau_eff > 1.5 * tau_w),
+            })
+        return out
+
+    @property
+    def reliable(self) -> bool:
+        """False when a level's tau_int is window-capped and the binning
+        cross-check says it is substantially underestimated."""
+        rel = getattr(self, "reliability", None)
+        return rel is None or not any(r["flagged"] for r in rel)
+
+    def statistical_error_robust(self, stats=None) -> float:
+        """Statistical error with each level's tau replaced by
+        max(windowed, binning) — an upper-bound error bar."""
+        explicit = stats is not None
+        stats = stats if explicit else self._final_stats
+        rel = (self._assess_reliability(stats) if explicit
+               else getattr(self, "reliability", None)
+               or self._assess_reliability(stats))
+        tot = 0.0
+        for ell in range(self.n_level):
+            n = self.stats_qoi[ell].samples(stats[ell])
+            if n == 0:
+                return float("inf")
+            v = max(self.stats_qoi[ell].variance(stats[ell]), 0.0)
+            tot += rel[ell]["tau_eff"] * v / n
+        return math.sqrt(tot)
+
+    def numerical_result(self, stats=None) -> float:
+        stats = stats if stats is not None else self._final_stats
+        return sum(self.stats_qoi[ell].average(stats[ell])
+                   for ell in range(self.n_level))
+
+    def statistical_error(self, stats=None) -> float:
+        stats = stats if stats is not None else self._final_stats
+        return math.sqrt(sum(self.stats_qoi[ell].error(stats[ell]) ** 2
+                             for ell in range(self.n_level)))

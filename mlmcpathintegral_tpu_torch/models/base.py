@@ -1,0 +1,62 @@
+"""Action interface (PyTorch port of ``mlmcpathintegral_tpu/models/base.py``).
+
+An action is a plain object whose methods are batched tensor functions:
+states are tensors ``[..., ndof]`` with all leading axes treated as chain
+batch dimensions.  Parameters (beta, ...) are Python floats fixed per
+multigrid level, as the reference instantiates one Action per level via
+``coarse_action()``.  No gradient is needed on the ported path, so there is
+no autograd default for the force.
+"""
+
+from __future__ import annotations
+
+import abc
+from enum import Enum
+
+import torch
+
+
+class RenormalisationType(Enum):
+    """Parameter renormalisation between multigrid levels
+    (src/action/renormalisation.hh:17-41)."""
+    NONE = "none"
+    PERTURBATIVE = "perturbative"
+    NONPERTURBATIVE = "nonperturbative"
+
+
+class Action(abc.ABC):
+    """Abstract action over batched states ``x: [..., ndof]``."""
+
+    #: lattice descriptor (static metadata)
+    lattice = None
+
+    @property
+    def ndof(self) -> int:
+        """Number of degrees of freedom (action/action.hh sample_size)."""
+        return self.lattice.ndof
+
+    @abc.abstractmethod
+    def evaluate(self, x: torch.Tensor) -> torch.Tensor:
+        """S[x] for batched states: [..., ndof] -> [...]."""
+
+    @abc.abstractmethod
+    def coarse_action(self) -> "Action":
+        """Action on the next-coarser lattice with renormalised parameters."""
+
+    @abc.abstractmethod
+    def initialise_state(self, generator: torch.Generator, n_chains: int,
+                         dtype: torch.dtype,
+                         device: torch.device) -> torch.Tensor:
+        """Fresh batched initial states [n_chains, ndof]."""
+
+    @abc.abstractmethod
+    def prolongate(self, x_coarse: torch.Tensor,
+                   x_fine: torch.Tensor) -> torch.Tensor:
+        """Inject coarse dofs into a fine state (copy_from_coarse)."""
+
+    @abc.abstractmethod
+    def restrict(self, x_fine: torch.Tensor) -> torch.Tensor:
+        """Restrict a fine state to the coarse lattice (copy_from_fine)."""
+
+    def info_string(self) -> str:
+        return f"lattice = {self.ndof}"

@@ -1,0 +1,3 @@
+from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
+    QuenchedSchwingerAction, chit_analytical,
+)

@@ -1,0 +1,249 @@
+"""Fused overrelax + heat-bath sweeps of the quenched Schwinger model
+(port of ``mlmcpathintegral_tpu/ops/pallas_schwinger.py``).
+
+``schwinger_sweep`` (one draw) and ``schwinger_sweep_chain`` (``n_steps``
+draws, emitting per step Q = sum_P mod_2pi(theta_P) and optionally
+E = sum_P cos(theta_P)) launch the CUDA kernel of
+``csrc/schwinger_sweep.cu`` for CUDA tensors and run the plain PyTorch
+version below for CPU tensors.  The plain version draws the same counter
+RNG words as the Pallas kernel, so for equal seeds it reproduces the JAX
+kernel (run in interpret mode) up to float rounding.
+
+Per draw: ``n_overrelax`` reflection sweeps and ``n_heatbath`` ExpCos
+heat-bath sweeps in 4 (mu, parity) link groups; the rejection draws 3
+words per round and is truncated at ``k_rej`` rounds, after which the
+link stays (an exact identity mixture).  ``schwinger_sweep_chain`` with
+``n_steps = N`` equals N ``schwinger_sweep`` calls with
+``step_offset = 0 .. N-1``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mlmcpathintegral_tpu_torch.ops import _cuda
+from mlmcpathintegral_tpu_torch.ops.rng import (
+    CounterRng, check_element_capacity, element_ids, seed_pair,
+)
+
+TWO_PI = 2.0 * math.pi
+PI = math.pi
+
+SWEEP = _cuda.KernelCounter(
+    "schwinger_sweep_chain", "mlmcpathintegral_tpu_torch/csrc/"
+    "schwinger_sweep.cu",
+    "mlmcpathintegral_tpu/ops/pallas_schwinger.py:272")
+
+
+def _mod_2pi(x):
+    """[-pi, pi) wrap (utils.special.mod_2pi)."""
+    return x - TWO_PI * torch.floor(0.5 * (x + PI) / PI)
+
+
+def _sh(A, di, dj):
+    """A(i+di, j+dj) for A of shape [C, Mx, Mt] (dim 1 = j, dim 2 = i)."""
+    out = A
+    if di:
+        out = torch.roll(out, -di, dims=2)
+    if dj:
+        out = torch.roll(out, -dj, dims=1)
+    return out
+
+
+def _staples(T, X, mu):
+    """(theta_p, theta_m) for direction mu (quenchedschwingeraction.cc:
+    25-44)."""
+    if mu == 0:
+        tp = _mod_2pi(_sh(T, 0, 1) + X - _sh(X, 1, 0))
+        tm = _mod_2pi(_sh(T, 0, -1) + _sh(X, 1, -1) - _sh(X, 0, -1))
+    else:
+        tp = _mod_2pi(T + _sh(X, 1, 0) - _sh(T, 0, 1))
+        tm = _mod_2pi(_sh(T, -1, 1) + _sh(X, -1, 0) - _sh(T, -1, 0))
+    return tp, tm
+
+
+def _first_accepted(prop, ok):
+    """(x, accepted): the proposal of the first accepted round (rounds on
+    dim 0) — the sequential rejection loop evaluated for all rounds at
+    once; lanes with no accepted round get 0."""
+    acc = ok.any(dim=0)
+    first = torch.argmax(ok.to(torch.int8), dim=0, keepdim=True)
+    x = torch.gather(prop, 0, first)[0]
+    return torch.where(acc, x, torch.zeros_like(x)), acc
+
+
+def _expcos_rejection(rng, tau, k_rej, dtype):
+    """Centred x ~ exp(tau cos x) on [-pi, pi) by mixed-envelope rejection
+    (uniform proposals for tau < 0.45, a tight Gaussian otherwise), 3 words
+    per round: u1 (radius), u2 (uniform proposal / Box-Muller angle), u
+    (accept).  Returns (x, accepted)."""
+    w = rng.uniform(dtype, n=3 * k_rej)
+    w = w.reshape(k_rej, 3, *w.shape[1:])
+    u1, u2, u = w[:, 0], w[:, 1], w[:, 2]
+    use_uni = tau < 0.45
+    sigma = 0.5 * PI / torch.sqrt(torch.clamp(tau, min=1e-12))
+    prop_u = PI * (2.0 * u2 - 1.0)
+    prop_g = sigma * (torch.sqrt(-2.0 * torch.log(u1))
+                      * torch.cos(TWO_PI * u2))
+    prop = torch.where(use_uni, prop_u, prop_g)
+    log_ratio = tau * (torch.cos(prop) - 1.0) + torch.where(
+        use_uni, 0.0, 2.0 * tau * prop * prop / (PI * PI))
+    ok = (-PI <= prop) & (prop < PI) & (torch.log(u) <= log_ratio)
+    return _first_accepted(prop, ok)
+
+
+def _expcos_shift(tp, tm, beta):
+    """(tau, shift) of the ExpCos draw given the two staples."""
+    dx = tm - tp
+    tau = 2.0 * beta * torch.abs(torch.cos(0.5 * dx))
+    shift = 0.5 * (tp + tm) + torch.where(
+        torch.abs(dx) > PI, dx.new_tensor(PI), dx.new_tensor(0.0))
+    return tau, shift
+
+
+def _expcos_draw(rng, cur, tp, tm, beta, k_rej, dtype):
+    """Heat-bath draw from p(x) ~ exp[beta(cos(x-tp)+cos(x-tm))]; lanes
+    that never accept keep ``cur``."""
+    tau, shift = _expcos_shift(tp, tm, beta)
+    x, acc = _expcos_rejection(rng, tau, k_rej, dtype)
+    return torch.where(acc, _mod_2pi(x + shift), cur)
+
+
+_GROUPS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def _group_sel(mu, parity):
+    """Selector of one (mu, parity) group on the [..., Mx, Mt] grid:
+    temporal links by j parity, spatial links by i parity."""
+    if mu == 0:
+        return (Ellipsis, slice(parity, None, 2), slice(None))
+    return (Ellipsis, slice(None), slice(parity, None, 2))
+
+
+def _one_step(T, X, rng, *, beta, n_overrelax, n_heatbath, k_rej, dtype):
+    """One full draw on [C, Mx, Mt] fields: n_overrelax + n_heatbath
+    coloured sweeps.  Each heat-bath group takes 3 k_rej words from the
+    stream; only the group's own sites are drawn (their words are the
+    same ones the Pallas kernel draws for them)."""
+    for _ in range(n_overrelax):
+        for mu, parity in _GROUPS:
+            tp, tm = _staples(T, X, mu)
+            sel = _group_sel(mu, parity)
+            L = (T if mu == 0 else X).clone()
+            L[sel] = _mod_2pi(tp[sel] + tm[sel] - L[sel])
+            T, X = (L, X) if mu == 0 else (T, L)
+    for _ in range(n_heatbath):
+        for mu, parity in _GROUPS:
+            tp, tm = _staples(T, X, mu)
+            sel = _group_sel(mu, parity)
+            L = (T if mu == 0 else X).clone()
+            L[sel] = _expcos_draw(rng.at(sel), L[sel], tp[sel], tm[sel],
+                                  beta, k_rej, dtype)
+            rng.skip(3 * k_rej)
+            T, X = (L, X) if mu == 0 else (T, L)
+    return T, X
+
+
+def _plaquettes(T, X):
+    return _mod_2pi(T + _sh(X, 1, 0) - _sh(T, 0, 1) - X)
+
+
+def schwinger_sweep_chain_plain(theta, seed, *, beta, Mt, Mx, n_steps,
+                                n_overrelax=1, n_heatbath=1, k_rej=6,
+                                with_energy=False, step_offset=0):
+    """Plain PyTorch version of the kernel (any device, any float dtype):
+    returns (theta', qsum[n_steps, C], esum[n_steps, C] or None)."""
+    SWEEP.count_plain(theta)
+    C = theta.shape[0]
+    check_element_capacity(Mx * Mt, C)
+    seed1, seed2 = seed_pair(seed)
+    g = theta.reshape(C, Mx, Mt, 2)
+    T, X = g[..., 0], g[..., 1]
+    site, chain = element_ids((Mx, Mt), C, theta.device)
+    qs, es = [], []
+    for s in range(n_steps):
+        rng = CounterRng(seed1, site, chain, seed2, step=step_offset + s)
+        T, X = _one_step(T, X, rng, beta=beta, n_overrelax=n_overrelax,
+                         n_heatbath=n_heatbath, k_rej=k_rej,
+                         dtype=theta.dtype)
+        plaq = _plaquettes(T, X)
+        qs.append(torch.sum(plaq, dim=(1, 2)))
+        if with_energy:
+            es.append(torch.sum(torch.cos(plaq), dim=(1, 2)))
+    out = torch.stack([T, X], dim=-1).reshape(C, 2 * Mx * Mt)
+    qsum = (torch.stack(qs) if qs
+            else theta.new_zeros((0, C)))
+    esum = torch.stack(es) if with_energy and es else (
+        theta.new_zeros((0, C)) if with_energy else None)
+    return out, qsum, esum
+
+
+def sweep_smem_bytes(Mt: int, Mx: int, n_chains: int | None = None):
+    """(threads per chain, chains per block, dynamic shared bytes) of the
+    sweep kernel's launch."""
+    nsites = Mx * Mt
+    tpc, cpb = _cuda.block_layout(nsites)
+    if n_chains is not None:
+        cpb = max(1, min(cpb, n_chains))
+    return tpc, cpb, 4 * (cpb * 2 * nsites + 2 * tpc * cpb)
+
+
+def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
+                n_heatbath, k_rej, with_energy, step_offset, want_q):
+    C = theta.shape[0]
+    _cuda.require_cuda("theta", theta, (C, 2 * Mx * Mt))
+    check_element_capacity(Mx * Mt, C)
+    tpc, cpb, smem = sweep_smem_bytes(Mt, Mx, C)
+    _cuda.check_smem(smem, theta.device, f"the {Mx}x{Mt} link field")
+    seed1, seed2 = seed_pair(seed)
+    out = torch.empty_like(theta)
+    qsum = (torch.empty((n_steps, C), dtype=theta.dtype, device=theta.device)
+            if want_q else None)
+    esum = (torch.empty((n_steps, C), dtype=theta.dtype, device=theta.device)
+            if with_energy else None)
+    lib = _cuda.load_library()
+    err = lib.mlmc_schwinger_sweep(
+        theta.data_ptr(), out.data_ptr(),
+        qsum.data_ptr() if qsum is not None else None,
+        esum.data_ptr() if esum is not None else None,
+        C, Mx, Mt, n_steps, step_offset, n_overrelax, n_heatbath, k_rej,
+        float(beta), seed1, seed2, tpc, cpb, smem,
+        _cuda.stream_ptr(theta.device))
+    _cuda.check_status(err, "schwinger_sweep kernel launch")
+    SWEEP.launches += 1
+    return out, qsum, esum
+
+
+def schwinger_sweep(theta, seed, *, beta, Mt, Mx, n_overrelax=1,
+                    n_heatbath=1, k_rej=6, step_offset=0):
+    """One fused overrelax + heat-bath draw on all chains.
+
+    theta: [C, Mx*Mt*2] flat link angles; seed: int32 scalar or pair
+    (two words for production-length chains).  ``step_offset`` selects
+    the per-step stream of the chain kernel.  Returns the new theta."""
+    kw = dict(beta=beta, Mt=Mt, Mx=Mx, n_steps=1, n_overrelax=n_overrelax,
+              n_heatbath=n_heatbath, k_rej=k_rej, with_energy=False,
+              step_offset=step_offset)
+    if _cuda.dispatch_device(theta) == "cpu":
+        return schwinger_sweep_chain_plain(theta, seed, **kw)[0]
+    return _sweep_cuda(theta, seed, want_q=False, **kw)[0]
+
+
+def schwinger_sweep_chain(theta, seed, *, beta, Mt, Mx, n_steps,
+                          n_overrelax=1, n_heatbath=1, k_rej=6,
+                          with_energy=False):
+    """``n_steps`` consecutive fused draws in one launch, the field
+    resident in shared memory.  Returns (theta', qsum[n_steps, C]) or,
+    with ``with_energy``, (theta', qsum, esum[n_steps, C])."""
+    kw = dict(beta=beta, Mt=Mt, Mx=Mx, n_steps=n_steps,
+              n_overrelax=n_overrelax, n_heatbath=n_heatbath, k_rej=k_rej,
+              with_energy=with_energy, step_offset=0)
+    if _cuda.dispatch_device(theta) == "cpu":
+        out, qsum, esum = schwinger_sweep_chain_plain(theta, seed, **kw)
+    else:
+        out, qsum, esum = _sweep_cuda(theta, seed, want_q=True, **kw)
+    if with_energy:
+        return out, qsum, esum
+    return out, qsum

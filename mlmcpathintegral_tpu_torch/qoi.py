@@ -1,0 +1,22 @@
+"""Quantities of interest (PyTorch port of ``mlmcpathintegral_tpu/qoi.py``):
+batched functions x[..., ndof] -> [...]."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mlmcpathintegral_tpu_torch.utils.special import mod_2pi
+
+FOUR_PI2_INV = 1.0 / (4.0 * math.pi * math.pi)
+
+
+def qoi_2d_susceptibility(action):
+    """V chi_t = Q^2/(4 pi^2), Q = sum_P mod_2pi(theta_P) over plaquettes
+    of a gauge action (qoi2dsusceptibility.cc:6-28)."""
+    def evaluate(theta):
+        plaq = action.plaquette_angles(theta)
+        Q = torch.sum(mod_2pi(plaq), dim=(-2, -1))
+        return FOUR_PI2_INV * Q * Q
+    return evaluate

@@ -1,0 +1,46 @@
+"""Sampler protocol (PyTorch port of
+``mlmcpathintegral_tpu/samplers/base.py``): a sampler's ``draw`` maps a
+batched state (a NamedTuple whose tensors lead with the chain axis) to the
+next one.  Randomness comes from an explicit ``torch.Generator``: the
+sampler draws its kernel seeds, or its plain tensor noise, from it."""
+
+from __future__ import annotations
+
+import abc
+
+import torch
+
+
+def kernel_seed(generator: torch.Generator) -> torch.Tensor:
+    """An int32[2] kernel seed pair drawn from ``generator`` (on the
+    generator's device; the kernels take it as two host words)."""
+    return torch.randint(-2**31, 2**31 - 1, (2,), generator=generator,
+                         dtype=torch.int32, device=generator.device)
+
+
+class Sampler(abc.ABC):
+    """Batched sampler over an action."""
+
+    def __init__(self, action):
+        self.action = action
+
+    @abc.abstractmethod
+    def init(self, generator, n_chains: int, dtype, device):
+        """Fresh sampler state with an ``x: [n_chains, ndof]`` field."""
+
+    @abc.abstractmethod
+    def draw(self, generator, state):
+        """One draw on all chains: (state, accept[n_chains] bool)."""
+
+    def x_of(self, state):
+        """Current position [n_chains, ndof] of a sampler state."""
+        return state.x
+
+    def prepare(self, generator, n_chains: int, dtype, device,
+                n_burnin: int = 0):
+        """Initialise + burn in (the work the reference does in sampler
+        constructors)."""
+        state = self.init(generator, n_chains, dtype, device)
+        for _ in range(n_burnin):
+            state, _ = self.draw(generator, state)
+        return state
