@@ -34,7 +34,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
                1024 chains, f32, 100k samples per level, chunk 256) on
                the card; it must go through the kernels (launch counters
                > 0, no plain-version call on CUDA) and land within 4 sigma
-               of the analytic chi_t.
+               of the analytic chi_t;
+  6. rotor_sweep - the rotor sweep kernel (csrc/rotor_sweep.cu):
+               overrelax-only identical to the plain version, one
+               rotor_sweep against it, and path B2's launch (M=256, 4096
+               chains, 128 steps) against it on the winding-sum trace
+               (see ``departures``) and on the final paths (>= SHARE_MIN
+               within 1e-4 mod 2 pi: the winding sum is blind to a change
+               of one site);
+  7. rotor_cluster - the Wolff cluster kernel (csrc/rotor_cluster.cu)
+               against its plain version at path A's launch shape (M=16,
+               1024 chains, 5 updates; 64 steps compared, the 1-step launch
+               timed by the profiler's device time per launch, the host's
+               time per launch beside it) and at path B1's launch (M=256,
+               4096 chains, 128 steps x 10 updates), on winding sums and
+               fields;
+  8. rotor_chains - paths B1 (ClusterSampler on the cluster kernel) and B2
+               (OverrelaxedHeatBathSampler on the sweep kernel, started
+               from B1's paths): the rotor of bench.py's
+               bench_rotor_cluster_M (M=256, T=4, I=0.25, 4096 chains,
+               chunks of 128 steps) within 4 sigma of chit_exact;
+  9. mlmc_cluster - path A: the main path's configuration with the hybrid
+               cluster coarse chains of bench_schwinger_mlmc(coarse=
+               "cluster"), as ``perf_probe.headline_mlmc_cluster`` builds
+               it, on the card: within 4 sigma, through the cluster kernel
+               (launches > 0, no plain-version call on CUDA).
+
+Each path is driven with every launch counter set to 0 just before it and
+read just after; each kernel of a path must have launched in it.  The
+kernels line gives, per kernel, its launches on its path (K3 and K4 on
+phase 5's, K7 on path A, K8 on path B2), the measured ms of a launch at
+its path's shape beside the plain version's and the bound (the least time
+the card could take for the launch's work, ``perf_probe.bound_ms``; the
+operations are counted from the kernel's arithmetic, with the rejection
+rounds this run's plain versions took).
 
 A kernel and its plain version compute the same thing in f32 with
 transcendentals and sums rounded differently, so a chain departs from its
@@ -53,6 +86,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -89,6 +123,15 @@ def fail(msg):
 def field_share(a, b, tol):
     d = (a.double() - b.double()).abs().reshape(a.shape[0], -1)
     return float((d.amax(dim=1) <= tol).double().mean())
+
+
+def angle_share(a, b, tol):
+    """field_share for angles: differences taken mod 2 pi (a value at the
+    -pi/pi seam may land on either side)."""
+    d = torch.remainder(a.double() - b.double() + math.pi, 2 * math.pi) \
+        - math.pi
+    return float((d.abs().reshape(a.shape[0], -1).amax(dim=1)
+                  <= tol).double().mean())
 
 
 def rel_diff(a, b):
@@ -131,6 +174,140 @@ def departures(agree, diffs):
     return rep, ok
 
 
+#: operations counted from the kernels' arithmetic, each float or integer
+#: add, multiply, compare, select, shift, bit operation and
+#: transcendental one: a counter-RNG word (3 fmix32, 2 multiply-adds, the
+#: float bits), a (site, step) stream's set-up, mod_2pi, one ExpCos
+#: rejection round (3 words, the proposal and the test), an ExpCos draw's
+#: set-up, a link's two staples, one BesselProduct round (4 words, the
+#: proposal and the test)
+OPS_WORD, OPS_RNG_INIT, OPS_MOD2PI = 32, 30, 6
+OPS_EXPCOS_ROUND, OPS_EXPCOS_SETUP, OPS_STAPLES = 3 * 32 + 19, 20, 16
+OPS_BESSEL_ROUND, OPS_BESSEL_SETUP = 4 * 32 + 40, 25
+
+
+@contextlib.contextmanager
+def rejection_tally():
+    """Count the rounds the plain versions' rejection loops run, to count
+    the work a launch does on its data (the sequential loop stops at its
+    first accepted round).  Yields {kind: [draws, rounds]}, filled while
+    the context is open: "expcos" for the ExpCos draws of every plain
+    version, "bessel" for the two-level fill's BesselProduct draws.  The
+    plain versions evaluate all rounds at once and pick the first accepted
+    one in ``_first_accepted``; this wraps it in both modules that call
+    it."""
+    from mlmcpathintegral_tpu_torch.ops import schwinger
+    from mlmcpathintegral_tpu_torch.ops import schwinger_twolevel as tl
+    tally = {}
+
+    def counting(first_accepted, kind):
+        def wrapped(prop, ok):
+            x, acc = first_accepted(prop, ok)
+            first = torch.argmax(ok.to(torch.int8), dim=0)
+            rounds = torch.where(acc, first + 1, ok.shape[0])
+            draws, total = tally.get(kind, (0, 0))
+            tally[kind] = [draws + rounds.numel(), total + rounds.sum()]
+            return x, acc
+        return wrapped
+
+    saved = schwinger._first_accepted, tl._first_accepted
+    schwinger._first_accepted = counting(saved[0], "expcos")
+    tl._first_accepted = counting(saved[1], "bessel")
+    try:
+        yield tally
+    finally:
+        schwinger._first_accepted, tl._first_accepted = saved
+
+
+def tallied(fn):
+    """Run a plain version once, timed with CUDA events and with its
+    rejection rounds counted: (its result, mean rounds per draw by loop
+    kind, ms).  One run serves the comparison, the timing and the work
+    count: a plain version at a path's launch shape takes seconds."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with rejection_tally() as tally:
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+    return (out, {k: float(r) / d for k, (d, r) in tally.items()},
+            start.elapsed_time(stop))
+
+
+def work_rng(n_sites, n_chains, n_steps, n_ctr):
+    """(bytes, operations) of an rng_fill launch: every word's bits and
+    uniform, and a Box-Muller normal (6 operations) per word pair."""
+    n_words = n_sites * n_chains * n_steps * n_ctr
+    return (4 * (2 * n_words + n_words // 2),
+            n_sites * n_chains * n_steps * OPS_RNG_INIT
+            + n_words * OPS_WORD + n_words // 2 * 6)
+
+
+def sweep_ops(n_links, n_plaq, r, n_overrelax=1, n_heatbath=1):
+    """Operations of one Schwinger sweep-chain step of one chain."""
+    return (n_overrelax * n_links * (OPS_STAPLES + 2 + OPS_MOD2PI)
+            + n_heatbath * n_links * (OPS_STAPLES + OPS_RNG_INIT
+                                      + OPS_EXPCOS_SETUP
+                                      + r * OPS_EXPCOS_ROUND)
+            + n_plaq * (6 + OPS_MOD2PI))
+
+
+def work_k3(C, Mx, Mt, n_steps, r):
+    """(bytes, operations) of a sweep-chain launch with Q and E traces."""
+    n_links = 2 * Mx * Mt
+    nbytes = 4 * (2 * C * n_links + 2 * n_steps * C)
+    return nbytes, C * n_steps * sweep_ops(n_links, Mx * Mt, r)
+
+
+def work_k4(C, Mx, Mt, n_steps, t_sub, r, r_bessel):
+    """(bytes, operations) of a two-level launch: per step t_sub coarse
+    sweeps, then per coarse cell the fill (perimeter, BesselProduct,
+    vertical split, two ExpCos links), its four fine plaquettes in S_fine
+    and Q, S_cond and the restriction."""
+    n_f, n_c, n_cells = 2 * Mx * Mt, Mx * Mt // 2, Mx * Mt // 4
+    per_cell = (OPS_RNG_INIT + 2 * OPS_WORD + 4 * (1 + OPS_MOD2PI)
+                + OPS_BESSEL_SETUP + r_bessel * OPS_BESSEL_ROUND
+                + OPS_WORD + 2 * (2 + OPS_MOD2PI)
+                + 2 * (OPS_STAPLES + OPS_EXPCOS_SETUP
+                       + r * OPS_EXPCOS_ROUND)
+                + 4 * (6 + OPS_MOD2PI) + 46 + 2 * (1 + OPS_MOD2PI) + 12)
+    per_step = t_sub * sweep_ops(n_c, n_cells, r) + n_cells * per_cell + 15
+    nbytes = 4 * (2 * C * (n_f + n_c + 2) + 2 * n_steps * C
+                  + 2 * n_steps * t_sub * C)
+    return nbytes, C * n_steps * per_step
+
+
+def work_k8(C, M, n_steps, r, n_overrelax=1, n_heatbath=1):
+    """(bytes, operations) of a rotor sweep-chain launch."""
+    per_step = (M * (n_overrelax * (2 + OPS_MOD2PI)
+                     + n_heatbath * (OPS_RNG_INIT + OPS_EXPCOS_SETUP
+                                     + r * OPS_EXPCOS_ROUND))
+                + M // 2 * (2 * (1 + OPS_MOD2PI) + 2))
+    return 4 * (2 * C * M + n_steps * C), C * n_steps * per_step
+
+
+def work_k7(C, M, n_steps, n_updates):
+    """(bytes, operations) of a rotor cluster-chain launch: per update the
+    reflection and seed (site 0's stream), then per site its cosine, bond
+    probabilities, walk orders, two words, two tests, flip count and
+    flip; per step the winding sum."""
+    per_update = (OPS_RNG_INIT + 2 * OPS_WORD + 8
+                  + M * (2 + 9 + 6 + OPS_RNG_INIT + 2 * OPS_WORD + 6 + 12
+                         + 3 + OPS_MOD2PI + 2))
+    per_step = n_updates * per_update + M * (2 + OPS_MOD2PI)
+    return 4 * (2 * C * M + n_steps * C), C * n_steps * per_step
+
+
+def bound_ms_row(nbytes, nops):
+    from mlmcpathintegral_tpu_torch.perf_probe import bound_ms
+    t, by = bound_ms(nbytes, nops)
+    # no single PyTorch call computes any of these functions
+    return dict(bound_ms=t, bound_by=by, bytes=nbytes, operations=nops,
+                library_ms=None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -153,9 +330,11 @@ def main() -> int:
     from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
         QuenchedSchwingerAction,
     )
-    from mlmcpathintegral_tpu_torch.ops import rng, schwinger
+    from mlmcpathintegral_tpu_torch.ops import rng, rotor, schwinger
     from mlmcpathintegral_tpu_torch.ops import schwinger_twolevel as tl
-    from mlmcpathintegral_tpu_torch.perf_probe import cuda_ms, headline_mlmc
+    from mlmcpathintegral_tpu_torch.perf_probe import (
+        cuda_ms, headline_mlmc, headline_mlmc_cluster, kernel_device_ms,
+    )
     from mlmcpathintegral_tpu_torch.samplers import (
         OverrelaxedHeatBathSampler,
     )
@@ -207,7 +386,8 @@ def main() -> int:
           "timed_grid": grids[0]})
     if not (bits_eq and uni_eq and nrm_err <= 1e-6):
         fail("counter RNG disagrees with its plain version")
-    rng_row = dict(max_abs_err=nrm_err, ms=ms, plain_ms=plain_ms)
+    rng_row = dict(max_abs_err=nrm_err, ms=ms, plain_ms=plain_ms,
+                   **bound_ms_row(*work_rng(**grids[0])))
 
     # ---- 3. K2/K3: sweep chain ------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -245,15 +425,14 @@ def main() -> int:
     thL = links(1024, 32)
     mkw = dict(beta=1.0, Mt=4, Mx=4, n_steps=2048, with_energy=True)
     k = schwinger.schwinger_sweep_chain(thL, (5, 6), **mkw)
-    p = schwinger.schwinger_sweep_chain_plain(thL, (5, 6), **mkw)
+    p, k3_rounds, plain_ms = tallied(
+        lambda: schwinger.schwinger_sweep_chain_plain(thL, (5, 6), **mkw))
     torch.cuda.synchronize()
     dq, de = rel_diff(k[1], p[1]), rel_diff(k[2], p[2])
     main_rep, main_ok = departures(
         (dq <= TOL) & (de <= TOL),
         torch.maximum((k[1] - p[1]).abs(), (k[2] - p[2]).abs()).double())
     sweep_res["main_launch"] = main_rep
-    plain_ms = cuda_ms(lambda: schwinger.schwinger_sweep_chain_plain(
-        thL, (5, 6), **mkw), 1, warm=False)
     ms = cuda_ms(lambda: schwinger.schwinger_sweep_chain(thL, (5, 6),
                                                          **mkw), 5)
     sweep_res.update(ms=ms, plain_ms=plain_ms,
@@ -263,7 +442,9 @@ def main() -> int:
             or min(shares.values()) < SHARE_MIN or not main_ok:
         fail("sweep kernel disagrees with its plain version")
     sweep_row = dict(max_abs_err=main_rep["max_abs_err_while_together"],
-                     ms=ms, plain_ms=plain_ms)
+                     ms=ms, plain_ms=plain_ms, **bound_ms_row(*work_k3(
+                         1024, 4, 4, 2048, k3_rounds["expcos"])),
+                     rejection_rounds=k3_rounds)
 
     # ---- 4. K4: two-level chain -----------------------------------------
     def carry(beta, C=1024):
@@ -283,7 +464,8 @@ def main() -> int:
     args, beta_c = carry(4.0)
     mkw = dict(beta=4.0, beta_c=beta_c, Mt=8, Mx=8, n_steps=256, t_sub=8)
     k = tl.schwinger_twolevel_chain(*args, (1, 2), **mkw)
-    p = tl.schwinger_twolevel_chain_plain(*args, (1, 2), **mkw)
+    p, k4_rounds, plain_ms = tallied(
+        lambda: tl.schwinger_twolevel_chain_plain(*args, (1, 2), **mkw))
     torch.cuda.synchronize()
 
     # [n_steps * t_sub, C] coarse-sweep traces -> worst sweep of each step
@@ -295,8 +477,6 @@ def main() -> int:
     main_rep["accept_rate"] = float(k[7].mean())
     main_rep["accept_rate_plain"] = float(p[7].mean())
     tl_res["main_launch"] = main_rep
-    plain_ms = cuda_ms(lambda: tl.schwinger_twolevel_chain_plain(
-        *args, (1, 2), **mkw), 1, warm=False)
     ms = cuda_ms(lambda: tl.schwinger_twolevel_chain(*args, (1, 2), **mkw),
                  3)
     tl_res.update(ms=ms, plain_ms=plain_ms,
@@ -315,7 +495,9 @@ def main() -> int:
     if not main_ok or min(res.values()) < SHARE_MIN:
         fail("two-level kernel disagrees with its plain version")
     tl_row = dict(max_abs_err=main_rep["max_abs_err_while_together"],
-                  ms=ms, plain_ms=plain_ms)
+                  ms=ms, plain_ms=plain_ms, **bound_ms_row(*work_k4(
+                      1024, 8, 8, 256, 8, k4_rounds["expcos"],
+                      k4_rounds["bessel"])), rejection_rounds=k4_rounds)
 
     # ---- 5. the main path -----------------------------------------------
     mc = headline_mlmc()
@@ -348,22 +530,232 @@ def main() -> int:
     if any(plain_cuda.values()):
         fail("main path ran a plain version on CUDA")
 
+    # ---- 6. K8: rotor sweep chain ----------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B_M, B_C, B_STEPS, B_T, B_I = 256, 4096, 128, 4.0, 0.25
+    kappa = B_I / (B_T / B_M)
+    r8 = {}
+    xB = (torch.rand(B_C, B_M, generator=gen, device=dev) * 2 - 1) * math.pi
+    okw = dict(kappa=kappa, M=B_M, n_steps=4, n_heatbath=0)
+    k = rotor.rotor_sweep_chain(xB, (7, 9), **okw)
+    p = rotor.rotor_sweep_chain_plain(xB, (7, 9), **okw)
+    r8["overrelax_field_max_abs_err"] = float((k[0] - p[0]).abs().max())
+    r8["overrelax_wsum_share_within_1e-4"] = trace_share(k[1], p[1], TOL)
+    k = rotor.rotor_sweep(xB, (7, 9), kappa=kappa, M=B_M)
+    p = rotor.rotor_sweep_chain_plain(xB, (7, 9), kappa=kappa, M=B_M,
+                                      n_steps=1)[0]
+    r8["single_sweep_share_within_1e-4"] = angle_share(k, p, TOL)
+    bkw = dict(kappa=kappa, M=B_M, n_steps=B_STEPS)
+    k = rotor.rotor_sweep_chain(xB, (5, 6), **bkw)
+    p, k8_rounds, plain_ms = tallied(
+        lambda: rotor.rotor_sweep_chain_plain(xB, (5, 6), **bkw))
+    torch.cuda.synchronize()
+    # the winding sum is blind to a local change of one site, so the final
+    # paths are held against each other too
+    main_rep, main_ok = departures(rel_diff(k[1], p[1]) <= TOL,
+                                   (k[1] - p[1]).abs().double())
+    main_rep["field_share_within_1e-4"] = angle_share(k[0], p[0], TOL)
+    r8["main_launch"] = main_rep
+    ms = cuda_ms(lambda: rotor.rotor_sweep_chain(xB, (5, 6), **bkw), 5)
+    r8.update(ms=ms, plain_ms=plain_ms, rejection_rounds=k8_rounds,
+              main_shape=f"M={B_M}, {B_C} chains, n_steps={B_STEPS}")
+    emit({"phase": "rotor_sweep", **r8})
+    if r8["overrelax_field_max_abs_err"] != 0.0 or not main_ok \
+            or r8["overrelax_wsum_share_within_1e-4"] < 1.0 \
+            or r8["single_sweep_share_within_1e-4"] < SHARE_MIN \
+            or main_rep["field_share_within_1e-4"] < SHARE_MIN:
+        fail("rotor sweep kernel disagrees with its plain version")
+    k8_row = dict(max_abs_err=main_rep["max_abs_err_while_together"],
+                  ms=ms, plain_ms=plain_ms, **bound_ms_row(*work_k8(
+                      B_C, B_M, B_STEPS, k8_rounds["expcos"])),
+                  rejection_rounds=k8_rounds)
+
+    # ---- 7. K7: rotor cluster chain -------------------------------------
+    r7 = {}
+    clat = headline_mlmc_cluster().actions[-1]
+    kappa2_A = 2.0 * clat.beta          # I = beta_c a, a = 1/M: 2 I/a
+    A_M, A_C = clat.lattice.Mt_lat * clat.lattice.Mx_lat, 1024
+    shapes = (("path_A", A_C, A_M, 64, 5, kappa2_A),
+              ("path_B1", B_C, B_M, B_STEPS, 10, 2.0 * kappa))
+    k7_ok = True
+    for name, C, M, n_steps, n_upd, k2 in shapes:
+        x = (torch.rand(C, M, generator=gen, device=dev) * 2 - 1) * math.pi
+        ckw = dict(kappa2=k2, M=M, n_steps=n_steps, n_updates=n_upd)
+        k = rotor.rotor_cluster_chain(x, (3, 4), **ckw)
+        p, _, plain_ms = tallied(
+            lambda: rotor.rotor_cluster_chain_plain(x, (3, 4), **ckw))
+        torch.cuda.synchronize()
+        rep, ok = departures(rel_diff(k[1], p[1]) <= TOL,
+                             (k[1] - p[1]).abs().double())
+        rep["field_share_within_1e-4"] = angle_share(k[0], p[0], TOL)
+        rep["field_share_identical"] = float(
+            (k[0] == p[0]).all(dim=1).double().mean())
+        k7_ok &= ok and rep["field_share_within_1e-4"] >= SHARE_MIN
+        # the launch the path makes: path A one step per coarse draw
+        lkw = dict(ckw, n_steps=1) if name == "path_A" else ckw
+        rep["plain_ms"] = plain_ms if lkw is ckw else cuda_ms(
+            lambda: rotor.rotor_cluster_chain_plain(x, (3, 4), **lkw), 1)
+        if name == "path_A":
+            # a one-step launch takes microseconds on the card, less than
+            # the host needs to issue it: CUDA events around back-to-back
+            # launches time the host.  The kernel's time is the profiler's
+            # device time per launch; the 64-step launch's time per step
+            # is a second reading
+            launch = lambda: rotor.rotor_cluster_chain(  # noqa: E731
+                x, (3, 4), **lkw)
+            rep["host_ms_per_launch"] = cuda_ms(launch, 50)
+            rep["ms_per_step_of_64_step_launch"] = cuda_ms(
+                lambda: rotor.rotor_cluster_chain(x, (3, 4), **ckw),
+                5) / n_steps
+            rep["ms"], rep["profiled_launches"] = kernel_device_ms(
+                launch, 50, "rotor_cluster")
+            rep["ms_from"] = "profiler"
+            if rep["ms"] is None:
+                rep["ms"] = rep["ms_per_step_of_64_step_launch"]
+                rep["ms_from"] = "64-step launch / 64"
+        else:
+            rep["ms"] = cuda_ms(lambda: rotor.rotor_cluster_chain(
+                x, (3, 4), **lkw), 5)
+        rep["launch"] = dict(chains=C, **lkw)
+        rep["bound"] = bound_ms_row(*work_k7(C, M, lkw["n_steps"], n_upd))
+        r7[name] = rep
+    emit({"phase": "rotor_cluster", **r7})
+    if not k7_ok:
+        fail("rotor cluster kernel disagrees with its plain version")
+    k7_row = dict(max_abs_err=max(r7[n]["max_abs_err_while_together"]
+                                  for n in r7),
+                  ms=r7["path_A"]["ms"], ms_from=r7["path_A"]["ms_from"],
+                  host_ms_per_launch=r7["path_A"]["host_ms_per_launch"],
+                  plain_ms=r7["path_A"]["plain_ms"],
+                  **r7["path_A"]["bound"],
+                  ms_path_B1=r7["path_B1"]["ms"],
+                  plain_ms_path_B1=r7["path_B1"]["plain_ms"],
+                  bound_ms_path_B1=r7["path_B1"]["bound"]["bound_ms"])
+
+    # ---- 8. paths B1 and B2: rotor chains through the samplers ----------
+    from mlmcpathintegral_tpu_torch.lattice import Lattice1D
+    from mlmcpathintegral_tpu_torch.models.rotor import RotorAction
+    from mlmcpathintegral_tpu_torch.samplers import ClusterSampler
+    from mlmcpathintegral_tpu_torch.samplers.heatbath import HeatBathState
+    from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
+    from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
+    ract = RotorAction(Lattice1D(B_M, B_T), m0=B_I)
+    oracle_r = ract.chit_exact()
+    chains = {}
+
+    def rotor_path(name, sampler, state, n_chunks=8):
+        """Warm chunk, then n_chunks of 128 steps with the counters
+        reset just before: chi_t, its error (the larger of Statistics'
+        tau-corrected one and the spread of the independent chains'
+        means), launches."""
+        g = torch.Generator(device=dev).manual_seed(len(chains) + 11)
+        state, _ = sampler.draw_chain(g, state, B_STEPS)
+        st = Statistics("chi_t", 40)
+        ss = st.init(B_C, torch.float32, dev)
+        per_chain = torch.zeros(B_C, dtype=torch.float64, device=dev)
+        ops.reset_counters()
+        t0 = time.monotonic()
+        for _ in range(n_chunks):
+            state, w = sampler.draw_chain(g, state, B_STEPS)
+            chi = w * w / (4.0 * math.pi ** 2 * B_T)
+            ss = stats_mod.record_many(ss, chi)
+            per_chain += chi.double().sum(dim=0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {c.name: c.launches for c in ops.counters()}
+        plain = {c.name: c.plain_cuda_calls for c in ops.counters()}
+        per_chain /= n_chunks * B_STEPS
+        err_chains = float(per_chain.std() / math.sqrt(B_C))
+        num, err_st = st.average(ss), st.error(ss)
+        err = max(err_st, err_chains)
+        rep = {"chit": num, "err": err, "err_statistics": err_st,
+               "err_chain_means": err_chains, "tau_int": st.tau_int(ss),
+               "chit_exact": oracle_r, "sigma_dev": abs(num - oracle_r) / err,
+               "samples": st.samples(ss), "wall_s": wall,
+               "launches": launches, "plain_calls_on_cuda": plain}
+        chains[name] = rep
+        return state, rep
+
+    b1 = ClusterSampler(ract, n_burnin=100, n_updates=10, use_pallas=True)
+    st1 = b1.prepare(torch.Generator(device=dev).manual_seed(3), B_C,
+                     torch.float32, dev)
+    st1, rep_b1 = rotor_path("B1_cluster", b1, st1)
+    b2 = OverrelaxedHeatBathSampler(ract, use_pallas=True)
+    _, rep_b2 = rotor_path("B2_heatbath", b2, HeatBathState(x=st1.x))
+    emit({"phase": "rotor_chains", **chains})
+    for name, rep, kernel in (("B1", rep_b1, rotor.CLUSTER.name),
+                              ("B2", rep_b2, rotor.SWEEP.name)):
+        if not math.isfinite(rep["chit"]) or rep["sigma_dev"] > 4.0:
+            fail(f"path {name} {rep['sigma_dev']:.2f} sigma from chit_exact")
+        if rep["launches"][kernel] == 0 or any(
+                rep["plain_calls_on_cuda"].values()):
+            fail(f"path {name} did not go through {kernel} alone")
+
+    # ---- 9. path A: MLMC with hybrid cluster coarse chains --------------
+    mca = headline_mlmc_cluster()
+    ops.reset_counters()
+    stats = mca.evaluate(torch.Generator().manual_seed(2), n_chains=1024,
+                         dtype=torch.float32, device=dev)
+    launches_A = {c.name: c.launches for c in ops.counters()}
+    plain_A = {c.name: c.plain_cuda_calls for c in ops.counters()}
+    num, err = mca.numerical_result(), mca.statistical_error()
+    sigma_dev = abs(num - oracle) / err
+    tau0 = mca.stats_qoi[0].tau_int(stats[0])
+    n0 = mca.stats_qoi[0].samples(stats[0])
+    method_wall = mca.timings["cost_measure_s"] + mca.timings["sampling_s"]
+    # each level's mean beside its exact value, with the error also taken
+    # from the spread of the independent chains' means (a cross-check of
+    # the tau-corrected error the gate uses)
+    exact = [oracle - mca.actions[1].chit_exact(),
+             mca.actions[1].chit_exact()]
+    levels = [{"avg": mca.stats_qoi[ell].average(stats[ell]),
+               "err": mca.stats_qoi[ell].error(stats[ell]),
+               "err_chain_means": float(
+                   stats[ell].avg.double().std()
+                   / math.sqrt(stats[ell].avg.numel())),
+               "exact": exact[ell]} for ell in range(2)]
+    emit({"phase": "mlmc_cluster", "chit": num, "err": err,
+          "chit_exact": oracle, "sigma_dev": sigma_dev, "tau_int_Y0": tau0,
+          "levels": levels, "n0": n0, "timings_s": mca.timings,
+          "cost_per_sample_us": mca.cost_per_sample,
+          "method_wall_s": method_wall,
+          "eff_samples_per_sec": n0 / (tau0 * method_wall),
+          "launches": launches_A, "plain_calls_on_cuda": plain_A,
+          "reliable": mca.reliable})
+    if not math.isfinite(num) or not math.isfinite(err) or err <= 0:
+        fail("path A gave a non-finite estimate")
+    if sigma_dev > 4.0:
+        fail(f"path A {sigma_dev:.2f} sigma from chit_exact")
+    if launches_A[rotor.CLUSTER.name] == 0:
+        fail("path A did not launch the cluster kernel")
+    if any(plain_A.values()):
+        fail("path A ran a plain version on CUDA")
+
     # ---- the kernel table and the result line ---------------------------
-    # the two kernels the main path launches, with their launch counts from
-    # that run; the counter RNG (K1) is a device function inside both,
-    # checked through its own rng_fill launcher, which the main path does
-    # not launch
+    # every kernel with its launches on its own path: K3 and K4 on the
+    # heat-bath main path (phase 5), K7 on path A (phase 9), K8 on path B2
+    # (phase 8); the counter RNG (K1) is a device function inside all of
+    # them, checked through its own rng_fill launcher, which no path
+    # launches
     rows = []
-    for counter, row in ((ops.SWEEP, sweep_row), (ops.TWOLEVEL, tl_row)):
+    for counter, row, n in (
+            (ops.SWEEP, sweep_row, launches[ops.SWEEP.name]),
+            (ops.TWOLEVEL, tl_row, launches[ops.TWOLEVEL.name]),
+            (rotor.CLUSTER, k7_row, launches_A[rotor.CLUSTER.name]),
+            (rotor.SWEEP, k8_row,
+             rep_b2["launches"][rotor.SWEEP.name])):
         rows.append({"name": counter.name, "route": "cuda",
                      "source": counter.source, "replaces": counter.replaces,
-                     "launches": launches[counter.name], **row})
+                     "launches": n, **row})
     rows[0]["also_replaces"] = "mlmcpathintegral_tpu/ops/" \
         "pallas_schwinger.py:233"   # schwinger_sweep: the same kernel
+    rows[3]["also_replaces"] = "mlmcpathintegral_tpu/ops/" \
+        "pallas_rotor.py:140"       # rotor_sweep: the same kernel
+    rows[2]["launches_path_B1"] = rep_b1["launches"][rotor.CLUSTER.name]
     device_functions = [{
         "name": "CounterRng", "route": "cuda", "source": ops.RNG_FILL.source,
         "replaces": ops.RNG_FILL.replaces,
-        "runs_inside": [ops.SWEEP.name, ops.TWOLEVEL.name],
+        "runs_inside": [r["name"] for r in rows],
         "checked_through": ops.RNG_FILL.name,
         "rng_fill_launches": launches[ops.RNG_FILL.name], **rng_row}]
     print(card_line, flush=True)

@@ -6,11 +6,14 @@ The package mirrors the JAX package's layout and names, so that each
 module's counterpart is easy to find.  It imports ``torch`` and never
 ``jax``.  Every Pallas kernel on the ported path has a hand-written CUDA
 C++ counterpart under ``csrc/``, built with ``nvcc`` at first use (see
-``ops/_build.py``); each wrapper runs the kernel for CUDA tensors and the
-plain PyTorch version of the same function for CPU tensors.
+``ops/_cuda.py``); each wrapper runs the kernel for CUDA tensors and the
+plain PyTorch version of the same function for CPU tensors.  Entry points
+run on the card unless the caller passes ``device="cpu"``.
 
-Ported so far: the two-level MLMC main path of the quenched Schwinger
-model (heat-bath coarse chains, both-direction coarsening).
+Ported so far: the two-level MLMC of the quenched Schwinger model with
+both-direction coarsening, with heat-bath coarse chains (the fused path)
+or hybrid cluster coarse chains (the unfused path), and the topological
+rotor with its heat-bath and Wolff cluster samplers.
 """
 
 __version__ = "0.1.0"

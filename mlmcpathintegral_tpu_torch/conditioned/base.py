@@ -16,6 +16,14 @@ import abc
 
 class ConditionedFineAction(abc.ABC):
 
+    #: True when prolongate + fill_fine_points overwrite every dof with
+    #: values set by the coarse dofs and fresh noise alone, never reading a
+    #: fine dof of the template state.  It licenses the batched
+    #: delayed-acceptance screen (mc/twolevel.py make_batched_screen),
+    #: which draws a whole chunk of proposals at once.  A fill that reads
+    #: fine dofs of the current state must set it False.
+    independent_fill = True
+
     def __init__(self, action):
         #: fine-level action this conditions on
         self.action = action

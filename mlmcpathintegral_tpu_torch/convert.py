@@ -1,9 +1,11 @@
 """State conversion between the JAX package and the PyTorch port.
 
 The two packages hold the same state in the same layouts — link fields
-[C, 2*Mx*Mt] in the reference's linear order, ``TwoLevelState``,
-``StatsState``, the per-level chunk carries (nested tuples of those and
-of 0-d counters) — as JAX arrays and as torch tensors.  This module
+[C, 2*Mx*Mt] in the reference's linear order, rotor paths [C, M],
+``TwoLevelState``, ``StatsState``, the sampler states (``HeatBathState``,
+``ClusterState``, ``SchwingerClusterState(x, psi)``), the per-level chunk
+carries (nested tuples of those and of 0-d counters) — as JAX arrays and
+as torch tensors.  This module
 carries such state across, as numpy arrays, in both directions:
 :func:`to_torch` takes any nesting of tuples/lists/NamedTuples with
 array-like leaves (numpy or JAX arrays) and returns the port's types;
@@ -19,19 +21,24 @@ import numpy as np
 import torch
 
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelState
+from mlmcpathintegral_tpu_torch.samplers.cluster import ClusterState
 from mlmcpathintegral_tpu_torch.samplers.heatbath import HeatBathState
+from mlmcpathintegral_tpu_torch.samplers.schwingercluster import (
+    SchwingerClusterState,
+)
 from mlmcpathintegral_tpu_torch.utils.statistics import StatsState
 
 #: the port's state classes, by the class name both packages use
 PORT_TYPES = {cls.__name__: cls
-              for cls in (HeatBathState, TwoLevelState, StatsState)}
+              for cls in (HeatBathState, ClusterState, SchwingerClusterState,
+                          TwoLevelState, StatsState)}
 
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def to_torch(tree, device="cpu", dtype=None):
+def to_torch(tree, device="cuda", dtype=None):
     """Array-like leaves -> torch tensors on ``device`` (floating leaves
     cast to ``dtype`` if given; integer leaves keep their type);
     NamedTuples -> the port's class of the same name."""

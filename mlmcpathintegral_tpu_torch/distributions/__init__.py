@@ -7,6 +7,9 @@ from mlmcpathintegral_tpu_torch.distributions.besselproduct import (
 from mlmcpathintegral_tpu_torch.distributions.expcos import (
     ExpCosDistribution,
 )
+from mlmcpathintegral_tpu_torch.distributions.expsin2 import (
+    ExpSin2Distribution,
+)
 from mlmcpathintegral_tpu_torch.distributions.rejection import (
     batched_rejection_sample,
 )

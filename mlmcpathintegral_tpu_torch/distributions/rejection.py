@@ -5,8 +5,10 @@ Every lane proposes and accept/rejects in lockstep; the loop runs until
 all lanes have accepted or ``max_iter`` rounds are spent, and accepted
 lanes are frozen.  The envelopes in this family are tight (acceptance
 >~ 0.5 per round), so the expected number of rounds is a handful.  The
-all-accepted test reads one boolean back to the host per round; this
-runs only in the set-up phase, never on the sampling path.
+all-accepted test reads one boolean back to the host per round.  It runs
+in the set-up phase and, on the unfused multilevel path, on the sampling
+path too: in the plain heat-bath mix sweeps of the hybrid cluster sampler
+and in the conditioned fill of the batched screen.
 """
 
 from __future__ import annotations

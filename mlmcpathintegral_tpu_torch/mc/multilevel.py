@@ -1,6 +1,6 @@
-"""Full multilevel Monte Carlo (MLMC) with the telescoping estimator,
-fused path (PyTorch port of ``mlmcpathintegral_tpu/mc/multilevel.py``;
-reference src/montecarlo/montecarlomultilevel.{hh,cc}).
+"""Full multilevel Monte Carlo (MLMC) with the telescoping estimator
+(PyTorch port of ``mlmcpathintegral_tpu/mc/multilevel.py``; reference
+src/montecarlo/montecarlomultilevel.{hh,cc}).
 
 Per level ell < L-1 the estimator measures Y_ell = Q_ell(theta_ell) -
 Q_{ell+1}(theta_{ell+1}), where theta_{ell+1} is a tau-subsampled coarse
@@ -8,21 +8,27 @@ sample and theta_ell comes from one two-level Metropolis screening; the
 coarsest level measures Y_{L-1} = Q_{L-1}.  The result is
 sum_ell mean(Y_ell) with error sqrt(sum err_ell^2).
 
-Every level runs a fused kernel: the fine levels the two-level chain
-(ops/schwinger_twolevel.py), the coarsest level the sweep chain
-(ops/schwinger.py).  Each chunk of ``chunk_size`` recorded samples is one
-kernel launch plus the statistics update, with its seed pair (int32[2])
-drawn from the run's ``torch.Generator``; the host runs the adaptive
-outer loop.  Configurations the JAX package runs on its unfused XLA path
-(other actions or coarse samplers, other coarsening, fields that do not
-fit one block's shared memory) raise NotImplementedError: the first three
-when the driver is built, the last at the first launch on the card
-(``ops._cuda.check_smem``).
+A level runs fused when it can: a quenched Schwinger level with
+both-direction coarsening and a heat-bath coarse sampler runs the
+two-level chain kernel (ops/schwinger_twolevel.py), the coarsest such level
+the sweep-chain kernel (ops/schwinger.py); each chunk of ``chunk_size``
+recorded samples is one launch plus the statistics update.  Every other
+level (``use_pallas=False``, or another coarse sampler such as the hybrid
+cluster sampler) runs unfused: per recorded sample the level's coarse
+sampler draws ceil(2 tau) times (mc/twolevel.py make_coarse_subsampler),
+and a chunk's coarse samples go through the batched screen
+(make_batched_screen).  Each chunk takes a seed pair (int32[2]) drawn from
+the run's ``torch.Generator``: the kernels take it directly, an unfused
+chunk seeds a generator on the chains' device from it.  The host runs the
+adaptive outer loop.  A fused level whose field does not fit one block's
+shared memory raises NotImplementedError at its first launch on the card
+(``ops._cuda.check_smem``); a configuration without a ported conditioned
+fill raises when its factory is called.
 
 Adaptive sample allocation (montecarlomultilevel.cc:147-164):
   N_ell = ceil( 2/eps^2 * S * sqrt(V_ell / C_ell^eff) * tau_ell ),
   S = sum_ell sqrt(V_ell * C_ell^eff),  C_ell^eff = ceil(tau_ell) C_ell
-with per-sample costs C_ell timed on the warm kernels.
+with per-sample costs C_ell timed on the warm chunks.
 """
 
 from __future__ import annotations
@@ -33,7 +39,12 @@ import time
 import numpy as np
 import torch
 
+from mlmcpathintegral_tpu_torch.mc.twolevel import (
+    make_batched_screen, make_coarse_subsampler,
+)
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelMetropolisStep
+from mlmcpathintegral_tpu_torch.ops import _cuda
+from mlmcpathintegral_tpu_torch.ops.rng import seed_pair
 from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
 from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
 from mlmcpathintegral_tpu_torch.utils.timer import sync
@@ -64,8 +75,8 @@ class MonteCarloMultiLevel:
         self.n_samples = int(n_samples)   # fixed per-level target if > 0
         self.n_min_samples_qoi = int(n_min_samples_qoi)
         self.chunk_size = int(chunk_size)
-        #: the fused kernels, as in the JAX package's API; False asks for
-        #: the unfused path, which is not ported yet and raises
+        #: the fused kernels where a level allows them, as in the JAX
+        #: package's API; False runs every level unfused
         self.use_pallas = bool(use_pallas)
         self.t_max = int(t_max)
 
@@ -93,6 +104,7 @@ class MonteCarloMultiLevel:
                                       n_autocorr_window)
                            for ell in range(self.n_level)]
         self._setup_fused()
+        self._build_unfused()
 
     # -- fused path (Schwinger, both-coarsening) ------------------------------
 
@@ -130,37 +142,34 @@ class MonteCarloMultiLevel:
         return isinstance(sampler, OverrelaxedHeatBathSampler)
 
     def _setup_fused(self):
-        """Check that every level runs fused, swap in heat-bath coarse
-        samplers for the fused levels (the in-kernel coarse chain is the
-        heat bath; the sampler object only initialises and burns in) and
-        start the per-level subsampling rates at the floor."""
+        """Swap in heat-bath coarse samplers for the fused levels (the
+        in-kernel coarse chain is the heat bath; the sampler object only
+        initialises and burns in) and start the per-level subsampling
+        rates at the floor."""
         self._t_sub = [self.FUSED_T_SUB_MIN] * self.n_level
-        unfused = [ell for ell in range(self.n_level - 1)
-                   if not self._fused_level(ell)]
-        if not self._fused_coarsest():
-            unfused.append(self.n_level - 1)
-        if unfused:
-            raise NotImplementedError(
-                f"levels {unfused} would run the unfused path (use_pallas="
-                f"False, a non-Schwinger action, a non-heat-bath coarse "
-                f"sampler or non-BOTH coarsening); the unfused multilevel "
-                f"path is a later slice (ROADMAP.md, item 9 under 'Later "
-                f"slices')")
         from mlmcpathintegral_tpu_torch.samplers.heatbath import (
             OverrelaxedHeatBathSampler,
         )
         for ell in range(self.n_level - 1):
-            self.coarse_samplers[ell] = OverrelaxedHeatBathSampler(
-                self.actions[ell + 1], n_sweep_heatbath=1,
-                n_sweep_overrelax=1, n_burnin=self.n_burnin)
-        self.coarsest_sampler = OverrelaxedHeatBathSampler(
-            self.actions[-1], n_sweep_heatbath=1, n_sweep_overrelax=1,
-            n_burnin=self.n_burnin)
+            if self._fused_level(ell):
+                self.coarse_samplers[ell] = OverrelaxedHeatBathSampler(
+                    self.actions[ell + 1], n_sweep_heatbath=1,
+                    n_sweep_overrelax=1, n_burnin=self.n_burnin)
+        if self._fused_coarsest():
+            self.coarsest_sampler = OverrelaxedHeatBathSampler(
+                self.actions[-1], n_sweep_heatbath=1, n_sweep_overrelax=1,
+                n_burnin=self.n_burnin)
+
+    def _is_fused(self, ell: int) -> bool:
+        return (self._fused_coarsest() if ell == self.n_level - 1
+                else self._fused_level(ell))
 
     def _level_chunk(self, ell: int) -> int:
         """Per-launch recorded samples for level ell: the configured
         chunk_size, reduced when the level's t_sub would make one fused
         launch exceed LAUNCH_SWEEP_BUDGET coarse sweeps."""
+        if not self._is_fused(ell):
+            return self.chunk_size
         t_sub = self._t_sub[ell if ell < self.n_level - 1 else -1]
         return max(8, min(self.chunk_size,
                           self.LAUNCH_SWEEP_BUDGET // max(t_sub, 1)))
@@ -238,12 +247,84 @@ class MonteCarloMultiLevel:
 
         return chunk_L
 
+    # -- unfused path (mc/twolevel.py) -----------------------------------------
+
+    @staticmethod
+    def _chunk_generator(seed, device):
+        """A generator on ``device`` seeded from a chunk's seed pair."""
+        s1, s2 = seed_pair(seed)
+        return torch.Generator(device=device).manual_seed((s1 << 32) | s2)
+
+    def _build_unfused(self):
+        """The chunk functions of the unfused levels:
+        ``chunk(seed, carry, n_active) -> (carry, ybar)``, as the fused
+        ones.  A chunk draws ``chunk_size`` subsampled coarse samples; on
+        a fine level the batched screen then screens them all."""
+        self._unfused = {}
+        for ell in range(self.n_level - 1):
+            if self._fused_level(ell):
+                continue
+            step = self.twolevel_steps[ell]
+            if not step.conditioned_fine_action.independent_fill:
+                raise NotImplementedError(
+                    "the sequential screen for fills that read the current "
+                    "fine state is not ported; every ported fill is "
+                    "independent")
+            self._unfused[ell] = self._make_unfused_chunk(
+                make_coarse_subsampler(self.coarse_samplers[ell],
+                                       self.qois[ell + 1]),
+                make_batched_screen(self.actions[ell], self.actions[ell + 1],
+                                    step.conditioned_fine_action,
+                                    self.qois[ell], self.qois[ell + 1]))
+        if not self._fused_coarsest():
+            self._unfused[self.n_level - 1] = self._make_unfused_chunk_L(
+                make_coarse_subsampler(self.coarsest_sampler,
+                                       self.qois[-1]))
+
+    def _make_unfused_chunk(self, draw_coarse, screen):
+        def chunk(seed, carry, n_active):
+            cstate, tl, st_y, st_cs, st_slow, t_accum = carry
+            gen = self._chunk_generator(seed, tl.theta.device)
+            xcs = []
+            for _ in range(self.chunk_size):
+                cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
+                                                     t_accum)
+                xcs.append(draw_coarse.sampler.x_of(cstate))
+            tl, qf, qc, _ = screen(gen, tl, torch.stack(xcs))
+            y = qf - qc
+            st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
+            return (cstate, tl, st_y, st_cs, st_slow, t_accum), \
+                torch.mean(y, dim=1)
+
+        return chunk
+
+    def _make_unfused_chunk_L(self, draw_coarse):
+        qoi_L = self.qois[-1]
+
+        def chunk_L(seed, carry, n_active):
+            cstate, st_y, st_cs, st_slow, t_accum = carry
+            x = draw_coarse.sampler.x_of(cstate)
+            gen = self._chunk_generator(seed, x.device)
+            ys = []
+            for _ in range(self.chunk_size):
+                cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
+                                                     t_accum)
+                ys.append(qoi_L(draw_coarse.sampler.x_of(cstate)))
+            y = torch.stack(ys)
+            st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
+            return (cstate, st_y, st_cs, st_slow, t_accum), \
+                torch.mean(y, dim=1)
+
+        return chunk_L
+
+    # -------------------------------------------------------------------------
+
     def _update_t_sub(self, carries, carry_L):
-        """Re-estimate the per-level coarse subsampling rates from
+        """Re-estimate the fused levels' coarse subsampling rates from
         max(tau_QoI, tau_slow) of the in-kernel coarse chain — the slow
         configuration mode is measured rather than assumed
-        (FUSED_T_SUB_MIN stays as the backstop).  Adapts between
-        chunks."""
+        (FUSED_T_SUB_MIN stays as the backstop).  Adapts between chunks;
+        unfused levels subsample by their own clock, per sample."""
         def quantised(tau):
             # round ceil(2 tau) up to a power of two (extra decorrelation
             # is harmless), floor at FUSED_T_SUB_MIN, cap at t_max
@@ -256,17 +337,21 @@ class MonteCarloMultiLevel:
             return new if (new > cur or new * 4 <= cur) else cur
 
         for ell in range(self.n_level - 1):
-            tau = max(self.stats_cs[ell].tau_int(carries[ell][3]),
-                      self.stats_slow[ell].tau_int(carries[ell][4]))
-            self._t_sub[ell] = ratchet(self._t_sub[ell], quantised(tau))
-        stats_L = Statistics("cs_L", self.stats_qoi[-1].k_max)
-        tau = max(stats_L.tau_int(carry_L[2]),
-                  self.stats_slow[-1].tau_int(carry_L[3]))
-        self._t_sub[-1] = ratchet(self._t_sub[-1], quantised(tau))
+            if self._fused_level(ell):
+                tau = max(self.stats_cs[ell].tau_int(carries[ell][3]),
+                          self.stats_slow[ell].tau_int(carries[ell][4]))
+                self._t_sub[ell] = ratchet(self._t_sub[ell], quantised(tau))
+        if self._fused_coarsest():
+            stats_L = Statistics("cs_L", self.stats_qoi[-1].k_max)
+            tau = max(stats_L.tau_int(carry_L[2]),
+                      self.stats_slow[-1].tau_int(carry_L[3]))
+            self._t_sub[-1] = ratchet(self._t_sub[-1], quantised(tau))
 
     def _chunk(self, ell: int):
-        """The chunk function of level ell at its current t_sub (building
-        one is cheap: no compilation on this path)."""
+        """The chunk function of level ell (a fused one at its current
+        t_sub; building one is cheap: no compilation on this path)."""
+        if ell in self._unfused:
+            return self._unfused[ell]
         if ell == self.n_level - 1:
             return self._make_fused_chunk_L(self._t_sub[-1])
         return self._make_fused_chunk(ell, self._t_sub[ell])
@@ -274,17 +359,18 @@ class MonteCarloMultiLevel:
     # -------------------------------------------------------------------------
 
     def evaluate(self, generator, n_chains: int, dtype=torch.float32,
-                 device="cpu", verbose: bool = False):
+                 device="cuda", verbose: bool = False):
         """Run the full MLMC estimation.  ``generator``: a CPU
         ``torch.Generator`` (or an int seed for one) from which every
-        kernel seed pair and the set-up noise are drawn; ``device``: where
-        the chains live ("cuda" runs the kernels, which take float32;
-        "cpu" their plain versions, in any float dtype).  Returns the
-        per-level Y statistics states."""
+        chunk's seed pair and the set-up noise are drawn; ``device``: where
+        the chains live, the card unless the caller asks for the CPU
+        ("cuda" runs the kernels, which take float32; "cpu" their plain
+        versions, in any float dtype).  Returns the per-level Y statistics
+        states."""
         t_start = time.monotonic()
+        device = _cuda.run_device(device)
         if not isinstance(generator, torch.Generator):
             generator = torch.Generator().manual_seed(int(generator))
-        device = torch.device(device)
         self.timings = {}   # wall-clock per phase
         L = self.n_level
 
@@ -436,11 +522,13 @@ class MonteCarloMultiLevel:
 
         stats = [st_y_of(ell) for ell in range(L)]
         self._final_stats = stats
-        #: learned slow-mode (plaquette-energy) tau per level — the
-        #: quantity the t_sub clock ran on
+        #: learned slow-mode (plaquette-energy) tau per fused level — the
+        #: quantity the t_sub clock ran on (None on unfused levels, whose
+        #: clock is the sampler's subsample_observable)
         self.tau_slow = [
             self.stats_slow[ell].tau_int(carry_L[3] if ell == L - 1
                                          else carries[ell][4])
+            if self._is_fused(ell) else None
             for ell in range(L)]
         self.reliability = self._assess_reliability(stats)
         return stats

@@ -60,3 +60,42 @@ class Action(abc.ABC):
 
     def info_string(self) -> str:
         return f"lattice = {self.ndof}"
+
+
+class QMAction(Action):
+    """Base for 1-D quantum-mechanics actions on ``Lattice1D``: the
+    single-site conditioned-action geometry W (minimum + curvature given
+    the two neighbours; action/qmaction.hh:79-215) used by heat-bath
+    updates, and even-site injection/restriction (qmaction.cc:7-24)."""
+
+    def __init__(self, lattice, renormalisation: RenormalisationType,
+                 m0: float):
+        self.lattice = lattice
+        self.renormalisation = renormalisation
+        self.m0 = float(m0)
+
+    @property
+    def a_lat(self) -> float:
+        return self.lattice.a_lat
+
+    @property
+    def M_lat(self) -> int:
+        return self.lattice.M_lat
+
+    @abc.abstractmethod
+    def getWminimum(self, x_m, x_p):
+        """Minimum of the single-site conditioned action W_{x-,x+}(x)."""
+
+    @abc.abstractmethod
+    def getWcurvature(self, x_m, x_p):
+        """Curvature W'' at the minimum."""
+
+    def prolongate(self, x_coarse, x_fine):
+        """x_fine[..., 2j] = x_coarse[..., j] (qmaction.cc:7-15)."""
+        out = x_fine.clone()
+        out[..., ::2] = x_coarse
+        return out
+
+    def restrict(self, x_fine):
+        """x_coarse[..., j] = x_fine[..., 2j] (qmaction.cc:17-24)."""
+        return x_fine[..., ::2]

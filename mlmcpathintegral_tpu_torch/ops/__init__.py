@@ -4,6 +4,8 @@ PyTorch version for CPU tensors; :func:`counters` lists their launch
 counters."""
 
 from mlmcpathintegral_tpu_torch.ops.rng import RNG_FILL
+from mlmcpathintegral_tpu_torch.ops.rotor import CLUSTER as ROTOR_CLUSTER
+from mlmcpathintegral_tpu_torch.ops.rotor import SWEEP as ROTOR_SWEEP
 from mlmcpathintegral_tpu_torch.ops.schwinger import SWEEP
 from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import TWOLEVEL
 
@@ -11,7 +13,7 @@ from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import TWOLEVEL
 def counters():
     """The :class:`~mlmcpathintegral_tpu_torch.ops._cuda.KernelCounter`
     of every kernel wrapper."""
-    return [RNG_FILL, SWEEP, TWOLEVEL]
+    return [RNG_FILL, SWEEP, TWOLEVEL, ROTOR_SWEEP, ROTOR_CLUSTER]
 
 
 def reset_counters() -> None:

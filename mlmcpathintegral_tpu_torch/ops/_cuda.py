@@ -34,8 +34,7 @@ BUILD_DIR = PKG_DIR / "_build"
 #: rounds them, so kernel and plain version agree to the last bit more
 #: often
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-lineinfo")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-lineinfo")
 
 c_ptr = ctypes.c_void_p
 c_int = ctypes.c_int
@@ -54,6 +53,12 @@ _SIGNATURES = {
                              c_ptr],
     "mlmc_schwinger_twolevel": [c_ptr] * 13 + [c_int] * 13 + [c_float] * 5
     + [c_u32, c_u32, c_int, c_int, c_size, c_ptr],
+    "mlmc_rotor_sweep": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
+                         c_int, c_int, c_float, c_u32, c_u32, c_int, c_int,
+                         c_size, c_ptr],
+    "mlmc_rotor_cluster": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
+                           c_float, c_u32, c_u32, c_int, c_int, c_size,
+                           c_ptr],
 }
 
 
@@ -109,19 +114,36 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile the kernels unless this source hash is built already;
-    returns (library path, build seconds — 0.0 when it was cached)."""
+    returns (library path, build seconds — 0.0 when it was cached).  Each
+    ``.cu`` file is compiled by its own nvcc process, all started
+    together, and the objects are linked into one library."""
     so = library_path()
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    tag = f"{so.stem}.{os.getpid()}"
     t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    cmds, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o",
+               str(BUILD_DIR / f"{tag}.{src.stem}.o"), str(src)]
+        cmds.append(cmd)
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    objs = [cmd[-2] for cmd in cmds]
+    results = [(cmd, proc, *proc.communicate())
+               for cmd, proc in zip(cmds, procs)]
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    link = [_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *objs]
+    if all(proc.returncode == 0 for _, proc, _, _ in results):
+        res = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, res, res.stdout, res.stderr))
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    for cmd, proc, out, err in results:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}\n{err}")
     os.replace(tmp, so)
     return so, time.monotonic() - t0
 
@@ -156,14 +178,16 @@ def max_smem_optin(device_index: int) -> int:
 def check_smem(nbytes: int, device: torch.device, what: str) -> None:
     """Refuse a launch whose block needs more dynamic shared memory than
     the device lets one block opt in to.  The kernels keep a chain's whole
-    field in one block; larger fields need the unfused multilevel path,
-    a later slice (ROADMAP.md item 9)."""
+    field in one block; a multilevel run with larger fields can take the
+    unfused path (``use_pallas=False``), and choosing it by itself is a
+    later slice (ROADMAP.md item 9)."""
     limit = max_smem_optin(device.index or 0)
     if nbytes > limit:
         raise NotImplementedError(
             f"{what} needs {nbytes} B of shared memory per block; the "
-            f"device allows {limit}.  Fields this large need the unfused "
-            f"multilevel path, a later slice (ROADMAP.md item 9)")
+            f"device allows {limit}.  Run such levels unfused "
+            f"(use_pallas=False); falling back by itself is a later slice "
+            f"(ROADMAP.md item 9)")
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -197,6 +221,19 @@ def block_layout(n_items: int, target_threads: int = 64):
     tpc = min(1024, next_pow2(n_items))
     cpb = max(1, target_threads // tpc)
     return tpc, cpb
+
+
+def run_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU.  A CUDA device on a machine without one raises; nothing
+    falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def dispatch_device(t: torch.Tensor) -> str:

@@ -79,7 +79,7 @@ def check_element_capacity(n_sites: int, n_chains: int) -> None:
             f"{n_chains} chains); larger lattices need a wider id scheme")
 
 
-def element_ids(site_shape, n_chains: int, device=None):
+def element_ids(site_shape, n_chains: int, device):
     """(site_id, chain_id) int64 tensors: site_id of shape ``site_shape``
     enumerates the site axes in row-major order, chain_id of shape
     [n_chains, 1, ..., 1] is the global chain index.  They broadcast to
@@ -177,8 +177,8 @@ RNG_FILL = _cuda.KernelCounter(
     "mlmcpathintegral_tpu/ops/pallas_rng.py:53")
 
 
-def rng_fill_plain(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
-                   device="cpu"):
+def rng_fill_plain(seed, *, n_sites, n_chains, n_steps, n_ctr, device,
+                   step0=0):
     """Plain version of :func:`rng_fill`."""
     seed1, seed2 = seed_pair(seed)
     site, chain = element_ids((n_sites,), n_chains, device)
@@ -199,21 +199,19 @@ def rng_fill_plain(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
 
 
 def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
-             device="cpu"):
+             device="cuda"):
     """The counter RNG's words for every (step, ctr, chain, site) with
     step = step0 .. step0+n_steps-1, ctr = 1 .. n_ctr: returns
     (bits int64 [n_steps, n_ctr, n_chains, n_sites] holding uint32 values,
     uniforms float32 of the same shape, normals float32
     [n_steps, n_ctr//2, n_chains, n_sites] from the word pairs
-    (2k+1, 2k+2)).  CUDA devices launch the kernel; the CPU runs the
-    plain version."""
-    device = torch.device(device)
+    (2k+1, 2k+2)).  Runs the kernel on the card unless ``device`` is the
+    CPU, where the plain version runs."""
+    device = _cuda.run_device(device)
     if device.type == "cpu":
         return rng_fill_plain(seed, n_sites=n_sites, n_chains=n_chains,
                               n_steps=n_steps, n_ctr=n_ctr, step0=step0,
                               device=device)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     check_element_capacity(n_sites, n_chains)
     seed1, seed2 = seed_pair(seed)
     shape = (n_steps, n_ctr, n_chains, n_sites)

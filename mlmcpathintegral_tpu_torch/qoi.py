@@ -12,6 +12,24 @@ from mlmcpathintegral_tpu_torch.utils.special import mod_2pi
 FOUR_PI2_INV = 1.0 / (4.0 * math.pi * math.pi)
 
 
+def _lattice_of(obj):
+    """Accept either a lattice or an action (the reference's QoIFactory
+    takes actions, quantityofinterest.hh:26-36)."""
+    return getattr(obj, "lattice", obj)
+
+
+def qoi_susceptibility(lattice):
+    """Topological susceptibility chi_t = Q[x]^2 / T with winding number
+    Q = (1/2pi) sum_j mod_2pi(x_j - x_{j-1}) (qoisusceptibility.cc:3-19)."""
+    T_final = _lattice_of(lattice).T_final
+
+    def evaluate(x):
+        dx = x - torch.roll(x, 1, dims=-1)
+        Q = torch.sum(mod_2pi(dx), dim=-1)
+        return FOUR_PI2_INV * Q * Q / T_final
+    return evaluate
+
+
 def qoi_2d_susceptibility(action):
     """V chi_t = Q^2/(4 pi^2), Q = sum_P mod_2pi(theta_P) over plaquettes
     of a gauge action (qoi2dsusceptibility.cc:6-28)."""

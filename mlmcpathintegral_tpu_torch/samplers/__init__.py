@@ -1,4 +1,10 @@
 from mlmcpathintegral_tpu_torch.samplers.base import Sampler
+from mlmcpathintegral_tpu_torch.samplers.cluster import (
+    ClusterSampler, ClusterState,
+)
 from mlmcpathintegral_tpu_torch.samplers.heatbath import (
     HeatBathState, OverrelaxedHeatBathSampler,
+)
+from mlmcpathintegral_tpu_torch.samplers.schwingercluster import (
+    QuenchedSchwingerClusterSampler, SchwingerClusterState,
 )

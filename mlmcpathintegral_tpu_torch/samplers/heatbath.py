@@ -1,13 +1,16 @@
 """Overrelaxed heat-bath sampler (PyTorch port of
-``mlmcpathintegral_tpu/samplers/heatbath.py``, quenched Schwinger only).
+``mlmcpathintegral_tpu/samplers/heatbath.py``: the quenched Schwinger
+action and the topological rotor).
 
 Reference parity: src/sampler/overrelaxedheatbathsampler.{hh,cc} —
 n_sweep_overrelax overrelaxation sweeps followed by n_sweep_heatbath
-heat-bath sweeps.  The action supplies coloured whole-lattice sweeps
-(4 conflict-free link groups).  With ``use_pallas`` a draw is one launch
-of the fused sweep kernel (ops/schwinger.py; the name is the JAX
-package's, whose fused kernels were Pallas); otherwise the action's plain
-tensor sweeps run with noise from the ``torch.Generator``.
+heat-bath sweeps.  The Schwinger action supplies coloured whole-lattice
+sweeps (4 conflict-free link groups); the rotor is swept on the 1-D
+even/odd checkerboard through its ``heatbath_site`` / ``overrelax_site``.
+With ``use_pallas`` a draw is one launch of the fused sweep kernel
+(ops/schwinger.py, ops/rotor.py; the name is the JAX package's, whose
+fused kernels were Pallas); otherwise the plain tensor sweeps run with
+noise from the ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -32,11 +35,18 @@ class OverrelaxedHeatBathSampler(Sampler):
         from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
             QuenchedSchwingerAction,
         )
-        if type(action) is not QuenchedSchwingerAction:
+        from mlmcpathintegral_tpu_torch.models.rotor import RotorAction
+        if type(action) is QuenchedSchwingerAction:
+            self._kind = "schwinger"
+        elif type(action) is RotorAction:
+            self._kind = "rotor"
+            if action.lattice.M_lat % 2:
+                raise ValueError("checkerboard sweep needs even M_lat")
+        else:
             raise NotImplementedError(
                 "the ported heat-bath sampler covers the quenched Schwinger "
-                "action only; the QM, rotor and GFF sweeps are later "
-                "slices (ROADMAP.md, open items 10-11)")
+                "action and the rotor; the other QM actions and the GFF are "
+                "later slices (ROADMAP.md, open items 10-11)")
         super().__init__(action)
         self.n_sweep_heatbath = int(n_sweep_heatbath)
         self.n_sweep_overrelax = int(n_sweep_overrelax)
@@ -47,20 +57,52 @@ class OverrelaxedHeatBathSampler(Sampler):
         return HeatBathState(x=self.action.initialise_state(
             generator, n_chains, dtype, device))
 
+    # -- rotor half-sweeps -----------------------------------------------------
+
+    def _half_sweep_heatbath(self, generator, x, parity: int):
+        """Update all sites of one parity from their conditional given the
+        (frozen) other parity."""
+        x_m = torch.roll(x, 1, dims=-1)[..., parity::2]
+        x_p = torch.roll(x, -1, dims=-1)[..., parity::2]
+        out = x.clone()
+        out[..., parity::2] = self.action.heatbath_site(
+            generator, x_m, x_p, x_cur=x[..., parity::2])
+        return out
+
+    def _half_sweep_overrelax(self, x, parity: int):
+        x_m = torch.roll(x, 1, dims=-1)[..., parity::2]
+        x_p = torch.roll(x, -1, dims=-1)[..., parity::2]
+        out = x.clone()
+        out[..., parity::2] = self.action.overrelax_site(x[..., parity::2],
+                                                        x_m, x_p)
+        return out
+
+    # -- draw ------------------------------------------------------------------
+
     def _kernel_kw(self):
         lat = self.action.lattice
+        kw = dict(n_overrelax=self.n_sweep_overrelax,
+                  n_heatbath=self.n_sweep_heatbath)
+        if self._kind == "rotor":
+            return dict(kappa=self.action.m0 / self.action.a_lat,
+                        M=lat.M_lat, **kw)
         return dict(beta=self.action.beta, Mt=lat.Mt_lat, Mx=lat.Mx_lat,
-                    n_overrelax=self.n_sweep_overrelax,
-                    n_heatbath=self.n_sweep_heatbath)
+                    **kw)
 
     def draw(self, generator, state: HeatBathState):
         x = state.x
         if self.use_pallas:
-            from mlmcpathintegral_tpu_torch.ops.schwinger import (
-                schwinger_sweep,
-            )
-            x = schwinger_sweep(x, kernel_seed(generator),
-                                **self._kernel_kw())
+            from mlmcpathintegral_tpu_torch.ops import rotor, schwinger
+            sweep = (rotor.rotor_sweep if self._kind == "rotor"
+                     else schwinger.schwinger_sweep)
+            x = sweep(x, kernel_seed(generator), **self._kernel_kw())
+        elif self._kind == "rotor":
+            for _ in range(self.n_sweep_overrelax):
+                x = self._half_sweep_overrelax(x, 0)
+                x = self._half_sweep_overrelax(x, 1)
+            for _ in range(self.n_sweep_heatbath):
+                x = self._half_sweep_heatbath(generator, x, 0)
+                x = self._half_sweep_heatbath(generator, x, 1)
         else:
             for _ in range(self.n_sweep_overrelax):
                 x = self.action.overrelaxation_sweep(x)
@@ -70,18 +112,19 @@ class OverrelaxedHeatBathSampler(Sampler):
         return HeatBathState(x=x), accept
 
     def draw_chain(self, generator, state: HeatBathState, n_steps: int):
-        """``n_steps`` consecutive draws, returning ``(state', qsum)`` with
-        qsum[s, c] = sum_P mod_2pi(theta_P) after step s.  With
-        ``use_pallas`` this is one launch of the sweep-chain kernel."""
+        """``n_steps`` consecutive draws, returning ``(state', trace)``
+        with trace[s, c] after step s: sum_P mod_2pi(theta_P) for the
+        Schwinger action, the winding sum for the rotor.  With
+        ``use_pallas`` this is one launch of the sweep-chain kernel;
+        otherwise a loop of draws (gauge actions only)."""
         x = state.x
         if self.use_pallas:
-            from mlmcpathintegral_tpu_torch.ops.schwinger import (
-                schwinger_sweep_chain,
-            )
-            x, qsum = schwinger_sweep_chain(x, kernel_seed(generator),
-                                            n_steps=n_steps,
-                                            **self._kernel_kw())
-            return HeatBathState(x=x), qsum
+            from mlmcpathintegral_tpu_torch.ops import rotor, schwinger
+            chain = (rotor.rotor_sweep_chain if self._kind == "rotor"
+                     else schwinger.schwinger_sweep_chain)
+            x, trace = chain(x, kernel_seed(generator), n_steps=n_steps,
+                             **self._kernel_kw())
+            return HeatBathState(x=x), trace
         qs = []
         for _ in range(n_steps):
             state, _ = self.draw(generator, state)

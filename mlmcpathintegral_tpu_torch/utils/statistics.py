@@ -41,7 +41,7 @@ class StatsState(NamedTuple):
 
 
 def init(n_chains: int, k_max: int, dtype=torch.float32,
-         device="cpu") -> StatsState:
+         device="cuda") -> StatsState:
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -115,6 +115,29 @@ def record_block(state: StatsState, Qs: torch.Tensor,
 def record_many(state: StatsState, Qs: torch.Tensor) -> StatsState:
     """Record a [T, C] block of samples (closed-form block update)."""
     return record_block(state, Qs)
+
+
+def record(state: StatsState, Q: torch.Tensor) -> StatsState:
+    """Record one sample per chain, Q: [C]."""
+    return record_block(state, Q[None])
+
+
+def tau_int_device(state: StatsState) -> torch.Tensor:
+    """Integrated autocorrelation time as a 0-d tensor on the state's
+    device, aggregated over the chain axis like :meth:`Statistics.tau_int`
+    (the clock of the tau-based coarse subsampling,
+    montecarlotwolevel.cc:82-94)."""
+    avg = torch.mean(state.avg_lt)
+    C_k = torch.mean(state.S_k, dim=0) - avg * avg
+    n = (state.n_lt * state.ring.shape[0]).to(C_k.dtype)
+    k = torch.arange(1, C_k.shape[0], dtype=C_k.dtype, device=C_k.device)
+    tsum = torch.sum((1.0 - k / torch.clamp(n, min=1.0)) * C_k[1:])
+    good = (state.n_lt >= 2) & (C_k[0] > 0.0)
+    return torch.where(
+        good, torch.clamp(1.0 + 2.0 * tsum
+                          / torch.where(good, C_k[0], torch.ones_like(n)),
+                          min=1.0),
+        torch.ones_like(n))
 
 
 def soft_reset(state: StatsState) -> StatsState:
@@ -203,7 +226,7 @@ class Statistics:
         self._scalar_cache = (None, None)
 
     def init(self, n_chains: int, dtype=torch.float32,
-             device="cpu") -> StatsState:
+             device="cuda") -> StatsState:
         return init(n_chains, self.k_max, dtype, device)
 
     def _scalars(self, state):

@@ -40,7 +40,9 @@ from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
     QuenchedSchwingerAction,
 )
 from mlmcpathintegral_tpu_torch.qoi import qoi_2d_susceptibility
-from mlmcpathintegral_tpu_torch.samplers import OverrelaxedHeatBathSampler
+from mlmcpathintegral_tpu_torch.samplers import (
+    OverrelaxedHeatBathSampler, QuenchedSchwingerClusterSampler,
+)
 
 # the port's tests run small tensors: one thread per worker process
 # avoids oversubscribing the cores the parallel test workers share
@@ -135,7 +137,7 @@ def chunk_runs():
 
 def test_fine_level_chunk_matches_jax(chunk_runs):
     mc = _port_mc()
-    carry = convert.to_torch(chunk_runs["in"][0])
+    carry = convert.to_torch(chunk_runs["in"][0], "cpu")
     assert isinstance(carry[1], convert.PORT_TYPES["TwoLevelState"])
     chunk = mc._make_fused_chunk(0, T_SUB)
     got = chunk(torch.from_numpy(chunk_runs["seeds"][0]), carry, N_ACTIVE)
@@ -144,7 +146,7 @@ def test_fine_level_chunk_matches_jax(chunk_runs):
 
 def test_coarsest_level_chunk_matches_jax(chunk_runs):
     mc = _port_mc()
-    carry = convert.to_torch(chunk_runs["in"][1])
+    carry = convert.to_torch(chunk_runs["in"][1], "cpu")
     chunk_L = mc._make_fused_chunk_L(T_SUB)
     got = chunk_L(torch.from_numpy(chunk_runs["seeds"][1]), carry, N_ACTIVE)
     _assert_trees_close(got, chunk_runs["out"][1], "coarsest-level chunk")
@@ -153,13 +155,13 @@ def test_coarsest_level_chunk_matches_jax(chunk_runs):
 def test_convert_round_trip_and_constants():
     mc = _jax_mc()
     carry, _ = _jax_carries(mc)
-    back = convert.to_numpy(convert.to_torch(carry),
+    back = convert.to_numpy(convert.to_torch(carry, "cpu"),
                             types={"HeatBathState": JHBState,
                                    "TwoLevelState": JTLState,
                                    "StatsState": jstats.StatsState})
     assert type(back[1]) is JTLState and type(back[2]) is jstats.StatsState
-    _assert_trees_close(convert.to_torch(carry), convert.to_numpy(back),
-                        "round trip")
+    _assert_trees_close(convert.to_torch(carry, "cpu"),
+                        convert.to_numpy(back), "round trip")
     for beta in (4.0, 10.0):
         ja = JAction(JLattice2D(8, 8, JCT.BOTH), beta=beta)
         ta = QuenchedSchwingerAction(Lattice2D(8, 8, CoarseningType.BOTH),
@@ -180,7 +182,7 @@ def test_evaluate_on_cpu_matches_oracle():
                   renormalisation=RenormalisationType.NONPERTURBATIVE,
                   n_burnin=100, n_samples=2000, chunk_size=16)
     stats = mc.evaluate(torch.Generator().manual_seed(1), n_chains=64,
-                        dtype=torch.float64)
+                        dtype=torch.float64, device="cpu")
     num, err = mc.numerical_result(), mc.statistical_error()
     oracle = mc.actions[0].chit_exact()
     assert abs(num - oracle) < 4 * err, (num, err, oracle)
@@ -198,13 +200,16 @@ def test_evaluate_on_cpu_matches_oracle():
 
 @pytest.mark.parametrize("kind", ["not_fused", "not_both", "not_heatbath"])
 def test_unported_configurations_raise(kind):
+    """Without the fused kernels or with another coarse sampler the levels
+    build on the unfused path; coarsening other than BOTH still raises."""
     if kind == "not_fused":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            _port_mc(use_pallas=False)
+        mc = _port_mc(use_pallas=False)
+        assert sorted(mc._unfused) == [0, 1]
+        assert not mc._is_fused(0) and not mc._is_fused(1)
     elif kind == "not_both":
         act = QuenchedSchwingerAction(
             Lattice2D(8, 8, CoarseningType.TEMPORAL), beta=4.0)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             MonteCarloMultiLevel(
                 act, qoi_2d_susceptibility,
                 coarse_sampler_factory=OverrelaxedHeatBathSampler,
@@ -213,12 +218,16 @@ def test_unported_configurations_raise(kind):
     else:
         act = QuenchedSchwingerAction(Lattice2D(8, 8, CoarseningType.BOTH),
                                       beta=4.0)
-        with pytest.raises(NotImplementedError, match="unfused"):
-            MonteCarloMultiLevel(
-                act, qoi_2d_susceptibility,
-                coarse_sampler_factory=lambda a: object(),
-                conditioned_fine_action_factory=(
-                    make_schwinger_conditioned_fine_action), n_level=2)
+        mc = MonteCarloMultiLevel(
+            act, qoi_2d_susceptibility,
+            coarse_sampler_factory=lambda a: QuenchedSchwingerClusterSampler(
+                a, n_burnin=0, n_updates=5, use_pallas=True),
+            conditioned_fine_action_factory=(
+                make_schwinger_conditioned_fine_action), n_level=2)
+        assert sorted(mc._unfused) == [0, 1]
+        assert isinstance(mc.coarse_samplers[0],
+                          QuenchedSchwingerClusterSampler)
+        assert mc._level_chunk(0) == mc.chunk_size
 
 
 def test_port_never_imports_jax():

@@ -64,3 +64,32 @@ def test_check_smem_refuses_fields_beyond_one_block(monkeypatch, size_of,
     else:
         with pytest.raises(NotImplementedError, match="later slice"):
             _cuda.check_smem(nbytes, dev, "field")
+
+
+@pytest.mark.parametrize("name, unfused, sampler", [
+    ("main", [], "OverrelaxedHeatBathSampler"),
+    ("path_A", [0, 1], "QuenchedSchwingerClusterSampler"),
+    ("unfused_heatbath", [0, 1], "OverrelaxedHeatBathSampler"),
+])
+def test_probe_configurations(name, unfused, sampler):
+    """The probe's configurations: bench_schwinger_mlmc's settings, fused
+    with heat-bath coarse chains, and unfused with hybrid cluster or
+    heat-bath ones (the accuracy witness of the unfused path)."""
+    build = {"main": perf_probe.headline_mlmc,
+             **perf_probe.ACCURACY_CONFIGS}[name]
+    mc = build()
+    assert sorted(mc._unfused) == unfused
+    assert type(mc.coarse_samplers[0]).__name__ == sampler
+    assert (mc.n_level, mc.chunk_size, mc.n_samples) == (2, 256, 100_000)
+    assert mc.actions[0].lattice.Mt_lat == 8 and mc.actions[0].beta == 4.0
+
+
+@pytest.mark.parametrize("nbytes, nops, want", [
+    (3.35e9, 0.0, (1.0, "bytes")),
+    (0.0, 67e9, (1.0, "operations")),
+    (3.35e9, 134e9, (2.0, "operations")),
+])
+def test_bound_ms_takes_the_larger_of_bytes_and_operations(nbytes, nops,
+                                                           want):
+    t, by = perf_probe.bound_ms(nbytes, nops)
+    assert t == pytest.approx(want[0], rel=1e-12) and by == want[1]

@@ -85,7 +85,8 @@ def test_rng_fill_plain_matches_stream():
     """rng_fill's plain version lays out the same words as CounterRng
     (with element_ids and step = step0 + st)."""
     bits, uni, nrm = trng.rng_fill_plain((3, -4), n_sites=5, n_chains=3,
-                                         n_steps=2, n_ctr=6, step0=10)
+                                         n_steps=2, n_ctr=6, step0=10,
+                                         device="cpu")
     assert bits.shape == (2, 6, 3, 5) and nrm.shape == (2, 3, 3, 5)
     site = jnp.arange(5, dtype=jnp.uint32)[None, :]
     chain = jnp.arange(3, dtype=jnp.uint32)[:, None]
@@ -108,6 +109,7 @@ def test_rng_fill_plain_matches_stream():
 def test_counters_stay_zero_on_cpu():
     from mlmcpathintegral_tpu_torch import ops
     before = [(c.launches, c.plain_cuda_calls) for c in ops.counters()]
-    trng.rng_fill((1, 2), n_sites=4, n_chains=2, n_steps=1, n_ctr=2)
+    trng.rng_fill((1, 2), n_sites=4, n_chains=2, n_steps=1, n_ctr=2,
+                  device="cpu")
     assert [(c.launches, c.plain_cuda_calls)
             for c in ops.counters()] == before

@@ -38,7 +38,7 @@ def _both(blocks):
     """Feed the same [T, C] blocks to both packages; entries of ``blocks``
     are (array, n_valid) or "reset"."""
     jst = js.init(C, K_MAX, jnp.float64)
-    tst = ts.init(C, K_MAX, torch.float64)
+    tst = ts.init(C, K_MAX, torch.float64, device="cpu")
     for b in blocks:
         if b == "reset":
             jst, tst = js.soft_reset(jst), ts.soft_reset(tst)
