@@ -58,12 +58,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
                cluster coarse chains of bench_schwinger_mlmc(coarse=
                "cluster"), as ``perf_probe.headline_mlmc_cluster`` builds
                it, on the card: within 4 sigma, through the cluster kernel
-               (launches > 0, no plain-version call on CUDA).
+               (launches > 0, no plain-version call on CUDA);
+ 10. hmc     - the HMC trajectory kernel (csrc/hmc_trajectory.cu) against
+               its plain version on the same x, p, u (x equilibrated by 30
+               kernel trajectories, so some chains reject), for each kind
+               at path D's launch (8192 chains, M=64, nt=20) and for the
+               quartic one at path C's coarse launch (4096 chains, M=32,
+               nt=100): >= SHARE_MIN of chains with x within TOL and the
+               same accept bit;
+ 12. hmc_chain - path D: bench.py's bench_harmonic unchanged
+               (``perf_probe.harmonic_hmc``: M=64, T=4, m0=mu2=1, 8192
+               chains, nt=20, prepare with autotune, a warm chunk, 8
+               chunks of 64 draws) through the trajectory kernel alone,
+               within 4 sigma of Xsquared_analytical;
+ 13. qm_twolevel_mlmc - paths C and C': bench_quartic_twolevel unchanged
+               (``perf_probe.quartic_twolevel``: M=64, T=4,
+               m0=mu2=lam=x0=1, 4096 chains, coarse HMC nt=100, Gaussian
+               fill, 256 samples per chain in chunks of 64, a warm-up call
+               first) through the trajectory and two-level kernels, the
+               fine <x^2> within 4 combined sigma of the C++ run's; and the
+               same with the harmonic action (C'), fine and coarse within
+               4 sigma of their Xsquared_analytical;
+ 11. qm_twolevel - the two-level kernel (csrc/qm_twolevel.cu) against its
+               plain version at path C's launch (4096 chains, Mc=32,
+               nt=100, 64 steps) at t_sub=2 with traces (burn-in) and at
+               the t_sub path C measured, without (sampling), on the
+               per-step fine/coarse QoI and accept traces and the
+               per-trajectory clock traces (see ``departures``), and the
+               final fields and cached actions (>= SHARE_MIN within TOL).
+               It runs after phase 13, whose t_sub it takes.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; each kernel of a path must have launched in it.  The
 kernels line gives, per kernel, its launches on its path (K3 and K4 on
-phase 5's, K7 on path A, K8 on path B2), the measured ms of a launch at
+phase 5's, K7 on path A, K8 on path B2, K5 on path D, K6 on path C), the
+measured ms of a launch at
 its path's shape beside the plain version's and the bound (the least time
 the card could take for the launch's work, ``perf_probe.bound_ms``; the
 operations are counted from the kernel's arithmetic, with the rejection
@@ -298,6 +327,45 @@ def work_k7(C, M, n_steps, n_updates):
                          + 3 + OPS_MOD2PI + 2))
     per_step = n_updates * per_update + M * (2 + OPS_MOD2PI)
     return 4 * (2 * C * M + n_steps * C), C * n_steps * per_step
+
+
+#: per-site operations of one force evaluation and of one action density
+#: term (with its add into the sum) of each HMC kind
+OPS_QM_FORCE = {"harmonic": 4, "quartic": 9, "rotor": 6}
+OPS_QM_DENSITY = {"harmonic": 7, "quartic": 13, "rotor": 4}
+
+
+def trajectory_ops(kind, M, nt):
+    """Operations of one trajectory of one chain: nt + 1 kicks (force, a
+    multiply and a subtract per site), nt drifts, two kinetic and two
+    potential energies, the accept test."""
+    return (M * ((nt + 1) * (OPS_QM_FORCE[kind] + 2) + 2 * nt
+                 + 2 * OPS_QM_DENSITY[kind] + 2 * 3) + 12)
+
+
+def work_k5(C, M, nt, kind):
+    """(bytes, operations) of one trajectory launch: x and p read, u read,
+    x and the accept bits written."""
+    return 4 * (3 * C * M + C) + C, C * trajectory_ops(kind, M, nt)
+
+
+def work_k6(C, Mc, nt, n_steps, t_sub, with_traces):
+    """(bytes, operations) of one two-level launch: per step t_sub
+    trajectories with in-kernel momenta (a stream set-up, two words and a
+    Box-Muller normal per site; the accept word) and, with traces, the
+    clock sums; then the fill (W fixed point, curvature, a normal, the
+    conditioned density), the fine and two coarse actions, the screen and
+    the QoI sums."""
+    per_traj = (trajectory_ops("quartic", Mc, nt)
+                + Mc * (OPS_RNG_INIT + 2 * OPS_WORD + 6)
+                + OPS_RNG_INIT + OPS_WORD + (3 * Mc + 4 if with_traces
+                                             else 0))
+    per_fill = (Mc * (2 + 4 * 6 + 5 + OPS_RNG_INIT + 2 * OPS_WORD + 6 + 3
+                      + 8 + 20 + 2 * OPS_QM_DENSITY["quartic"] + 6)
+                + OPS_RNG_INIT + OPS_WORD + 20)
+    n_traj = n_steps * t_sub if with_traces else 1
+    nbytes = 4 * (2 * C * (3 * Mc + 2) + 3 * n_steps * C + 2 * n_traj * C)
+    return nbytes, C * n_steps * (t_sub * per_traj + per_fill)
 
 
 def bound_ms_row(nbytes, nops):
@@ -731,10 +799,170 @@ def main() -> int:
     if any(plain_A.values()):
         fail("path A ran a plain version on CUDA")
 
+    # ---- 10. K5: HMC trajectory -----------------------------------------
+    from mlmcpathintegral_tpu_torch import convert
+    from mlmcpathintegral_tpu_torch.conditioned.qm import (
+        GaussianConditionedFineAction,
+    )
+    from mlmcpathintegral_tpu_torch.models import QuarticOscillatorAction
+    from mlmcpathintegral_tpu_torch.ops import hmc
+    from mlmcpathintegral_tpu_torch.ops import qm_twolevel as qtl
+    from mlmcpathintegral_tpu_torch.perf_probe import (
+        harmonic_hmc, quartic_twolevel,
+    )
+    gen = torch.Generator(device=dev).manual_seed(5)
+    QM = dict(m0=1.0, mu2=1.0, lam=1.0, x0=1.0)
+    kinds = {"harmonic": dict(m0=1.0, mu2=1.0), "quartic": QM,
+             "rotor": dict(m0=1.0)}
+    # (name, chains, sites, nt, spacing, kinds): path D's launch and path
+    # C's coarse-chain launch (coarse spacing 2a = 4/32)
+    launches_k5 = (("path_D", 8192, 64, 20, 4.0 / 64, sorted(kinds)),
+                   ("path_C_coarse", 4096, 32, 100, 4.0 / 32, ["quartic"]))
+    r10, k5_ok, dt_t = {}, True, torch.tensor(0.1, device=dev)
+    for name, C, M, nt, a, knames in launches_k5:
+        for kn in knames:
+            x = torch.randn(C, M, generator=gen, device=dev) * 0.5 \
+                + kinds[kn].get("x0", 0.0)
+            hkw = dict(kind=kn, a_lat=a, nt=nt, **kinds[kn])
+            # a hot start accepts every trajectory (dH << 0): equilibrate
+            # first, so that the compared launch rejects some chains
+            for _ in range(30):
+                x, _ = hmc.hmc_trajectory(
+                    x, torch.randn(C, M, generator=gen, device=dev),
+                    torch.rand(C, generator=gen, device=dev), dt_t, **hkw)
+            p = torch.randn(C, M, generator=gen, device=dev)
+            u = torch.rand(C, generator=gen, device=dev)
+            k = hmc.hmc_trajectory(x, p, u, dt_t, **hkw)
+            pl, _, plain_ms = tallied(
+                lambda: hmc.hmc_trajectory_plain(x, p, u, dt_t, **hkw))
+            share = float(((rel_diff(k[0], pl[0]).amax(dim=1) <= TOL)
+                           & (k[1] == pl[1])).double().mean())
+            rep = {"share_within_1e-4_same_accept": share,
+                   "accept_rate": float(k[1].double().mean()),
+                   "accept_rate_plain": float(pl[1].double().mean()),
+                   "max_abs_err": float((k[0] - pl[0]).abs().max()),
+                   "plain_ms": plain_ms}
+            k5_ok &= share >= SHARE_MIN
+            if kn == ("harmonic" if name == "path_D" else "quartic"):
+                launch = lambda: hmc.hmc_trajectory(  # noqa: E731
+                    x, p, u, dt_t, **hkw)
+                rep["host_ms_per_launch"] = cuda_ms(launch, 50)
+                rep["ms"], _ = kernel_device_ms(launch, 50, "hmc_trajectory")
+                rep["ms_from"] = "profiler"
+                if rep["ms"] is None:
+                    rep["ms"], rep["ms_from"] = rep["host_ms_per_launch"], \
+                        "CUDA events"
+                rep["bound"] = bound_ms_row(*work_k5(C, M, nt, kn))
+            r10[f"{name}:{kn}"] = rep
+    emit({"phase": "hmc", "shapes": [s[:5] for s in launches_k5], **r10})
+    if not k5_ok:
+        fail("HMC trajectory kernel disagrees with its plain version")
+    rD = r10["path_D:harmonic"]
+    k5_row = dict(max_abs_err=max(r["max_abs_err"] for r in r10.values()),
+                  ms=rD["ms"], ms_from=rD["ms_from"],
+                  host_ms_per_launch=rD["host_ms_per_launch"],
+                  plain_ms=rD["plain_ms"], **rD["bound"],
+                  ms_path_C_coarse=r10["path_C_coarse:quartic"]["ms"],
+                  bound_ms_path_C_coarse=r10["path_C_coarse:quartic"][
+                      "bound"]["bound_ms"])
+
+    # ---- 12. path D: single-level HMC through K5 -------------------------
+    ops.reset_counters()
+    rep_d = harmonic_hmc(device=dev)
+    rep_d["launches"] = {c.name: c.launches for c in ops.counters()}
+    rep_d["plain_calls_on_cuda"] = {c.name: c.plain_cuda_calls
+                                    for c in ops.counters()}
+    emit({"phase": "hmc_chain", **rep_d})
+    if not math.isfinite(rep_d["avg_x2"]) or rep_d["sigma_dev"] > 4.0:
+        fail(f"path D {rep_d['sigma_dev']:.2f} sigma from "
+             f"Xsquared_analytical")
+    if rep_d["launches"][hmc.HMC.name] == 0 \
+            or any(rep_d["plain_calls_on_cuda"].values()):
+        fail("path D did not go through the trajectory kernel alone")
+
+    # ---- 13. paths C and C': two-level QM through K5 and K6 -------------
+    qm_paths = {}
+    for name, qm_kind in (("C_quartic", "quartic"),
+                          ("C'_harmonic", "harmonic")):
+        ops.reset_counters()
+        rep = quartic_twolevel(kind=qm_kind, device=dev)
+        rep["launches"] = {c.name: c.launches for c in ops.counters()}
+        rep["plain_calls_on_cuda"] = {c.name: c.plain_cuda_calls
+                                      for c in ops.counters()}
+        qm_paths[name] = rep
+    emit({"phase": "qm_twolevel_mlmc", **qm_paths})
+    rep_c = qm_paths["C_quartic"]
+    for name, rep in qm_paths.items():
+        devs = [rep["sigma_dev"], rep.get("coarse_sigma_dev", 0.0)]
+        if not all(math.isfinite(v) for v in devs + [rep["avg_x2"]]) \
+                or max(devs) > 4.0:
+            fail(f"path {name} {max(devs):.2f} sigma from its oracle")
+        if rep["launches"][hmc.HMC.name] == 0 \
+                or rep["launches"][qtl.QM_TWOLEVEL.name] == 0 \
+                or any(rep["plain_calls_on_cuda"].values()):
+            fail(f"path {name} did not go through K5 and K6 alone")
+
+    # ---- 11. K6: QM two-level chain --------------------------------------
+    Mc, C6 = 32, 4096
+    act = QuarticOscillatorAction(Lattice1D(2 * Mc, 4.0), **QM)
+    cond = GaussianConditionedFineAction(act)
+    xc = QM["x0"] + 0.5 * torch.randn(C6, Mc, generator=gen, device=dev)
+    xf = cond.fill_fine_points(gen, act.prolongate(
+        xc, torch.zeros(C6, 2 * Mc, device=dev)))
+    args6 = (convert.qm_planes(xf), xc, convert.qm_s_cache(act, cond, xf),
+             dt_t)
+    t_sub_c = int(rep_c["t_indep"])
+    r11, k6_ok = {}, True
+    for t_sub, traces in ((2, True), (t_sub_c, False)):
+        qkw = dict(QM, a_lat=act.a_lat, nt=100, n_steps=64, t_sub=t_sub,
+                   with_traces=traces)
+        k = qtl.qm_twolevel_chain(*args6, (7, 8), **qkw)
+        pl, _, plain_ms = tallied(
+            lambda: qtl.qm_twolevel_chain_plain(*args6, (7, 8), **qkw))
+        agree = ((rel_diff(k[3], pl[3]) <= TOL)
+                 & (rel_diff(k[4], pl[4]) <= TOL) & (k[7] == pl[7]))
+        if traces:
+            # [n_steps * t_sub, C] clock traces -> worst trajectory a step
+            for i in (5, 6):
+                agree &= rel_diff(k[i], pl[i]).reshape(
+                    64, t_sub, -1).amax(dim=1) <= TOL
+        rep, ok = departures(agree, (k[3] - pl[3]).abs().double())
+        rep.update({
+            "t_sub": t_sub, "with_traces": traces, "plain_ms": plain_ms,
+            "accept_rate": float(k[7].mean()),
+            "accept_rate_plain": float(pl[7].mean()),
+            "fine_share_within_1e-4": field_share(
+                k[0].transpose(0, 1), pl[0].transpose(0, 1), TOL),
+            "coarse_share_within_1e-4": field_share(k[1], pl[1], TOL),
+            "s_cache_share_within_1e-4": trace_share(k[2], pl[2], TOL),
+            "ms": cuda_ms(lambda: qtl.qm_twolevel_chain(
+                *args6, (7, 8), **qkw), 3),
+            "bound": bound_ms_row(*work_k6(C6, Mc, 100, 64, t_sub,
+                                           traces))})
+        k6_ok &= ok and min(rep["fine_share_within_1e-4"],
+                            rep["coarse_share_within_1e-4"],
+                            rep["s_cache_share_within_1e-4"]) >= SHARE_MIN
+        r11["burn_in" if traces else "sampling"] = rep
+    emit({"phase": "qm_twolevel", "chains": C6, "Mc": Mc, "nt": 100,
+          "n_steps": 64, **r11})
+    if not k6_ok:
+        fail("QM two-level kernel disagrees with its plain version")
+    rS = r11["sampling"]
+    k6_row = dict(max_abs_err=max(r["max_abs_err_while_together"]
+                                  for r in r11.values()),
+                  ms=rS["ms"], plain_ms=rS["plain_ms"], **rS["bound"],
+                  launch=dict(chains=C6, Mc=Mc, nt=100, n_steps=64,
+                              t_sub=t_sub_c, with_traces=False),
+                  ms_burn_in_launch=r11["burn_in"]["ms"],
+                  plain_ms_burn_in_launch=r11["burn_in"]["plain_ms"],
+                  bound_ms_burn_in_launch=r11["burn_in"]["bound"][
+                      "bound_ms"])
+
     # ---- the kernel table and the result line ---------------------------
     # every kernel with its launches on its own path: K3 and K4 on the
     # heat-bath main path (phase 5), K7 on path A (phase 9), K8 on path B2
-    # (phase 8); the counter RNG (K1) is a device function inside all of
+    # (phase 8), K5 on path D (phase 12), K6 on path C (phase 13); the
+    # counter RNG (K1) is a device function inside all of
     # them, checked through its own rng_fill launcher, which no path
     # launches
     rows = []
@@ -743,7 +971,10 @@ def main() -> int:
             (ops.TWOLEVEL, tl_row, launches[ops.TWOLEVEL.name]),
             (rotor.CLUSTER, k7_row, launches_A[rotor.CLUSTER.name]),
             (rotor.SWEEP, k8_row,
-             rep_b2["launches"][rotor.SWEEP.name])):
+             rep_b2["launches"][rotor.SWEEP.name]),
+            (hmc.HMC, k5_row, rep_d["launches"][hmc.HMC.name]),
+            (qtl.QM_TWOLEVEL, k6_row,
+             rep_c["launches"][qtl.QM_TWOLEVEL.name])):
         rows.append({"name": counter.name, "route": "cuda",
                      "source": counter.source, "replaces": counter.replaces,
                      "launches": n, **row})
@@ -752,10 +983,12 @@ def main() -> int:
     rows[3]["also_replaces"] = "mlmcpathintegral_tpu/ops/" \
         "pallas_rotor.py:140"       # rotor_sweep: the same kernel
     rows[2]["launches_path_B1"] = rep_b1["launches"][rotor.CLUSTER.name]
+    rows[4]["launches_path_C"] = rep_c["launches"][hmc.HMC.name]
     device_functions = [{
         "name": "CounterRng", "route": "cuda", "source": ops.RNG_FILL.source,
         "replaces": ops.RNG_FILL.replaces,
-        "runs_inside": [r["name"] for r in rows],
+        "runs_inside": [r["name"] for r in rows
+                        if r["name"] != hmc.HMC.name],
         "checked_through": ops.RNG_FILL.name,
         "rng_fill_launches": launches[ops.RNG_FILL.name], **rng_row}]
     print(card_line, flush=True)

@@ -3,9 +3,9 @@
 The two packages hold the same state in the same layouts — link fields
 [C, 2*Mx*Mt] in the reference's linear order, rotor paths [C, M],
 ``TwoLevelState``, ``StatsState``, the sampler states (``HeatBathState``,
-``ClusterState``, ``SchwingerClusterState(x, psi)``), the per-level chunk
-carries (nested tuples of those and of 0-d counters) — as JAX arrays and
-as torch tensors.  This module
+``ClusterState``, ``SchwingerClusterState(x, psi)``, ``HMCState(x, dt)``,
+``ExactState``), the per-level chunk carries (nested tuples of those and of
+0-d counters) — as JAX arrays and as torch tensors.  This module
 carries such state across, as numpy arrays, in both directions:
 :func:`to_torch` takes any nesting of tuples/lists/NamedTuples with
 array-like leaves (numpy or JAX arrays) and returns the port's types;
@@ -22,7 +22,9 @@ import torch
 
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelState
 from mlmcpathintegral_tpu_torch.samplers.cluster import ClusterState
+from mlmcpathintegral_tpu_torch.samplers.exact import ExactState
 from mlmcpathintegral_tpu_torch.samplers.heatbath import HeatBathState
+from mlmcpathintegral_tpu_torch.samplers.hmc import HMCState
 from mlmcpathintegral_tpu_torch.samplers.schwingercluster import (
     SchwingerClusterState,
 )
@@ -31,7 +33,7 @@ from mlmcpathintegral_tpu_torch.utils.statistics import StatsState
 #: the port's state classes, by the class name both packages use
 PORT_TYPES = {cls.__name__: cls
               for cls in (HeatBathState, ClusterState, SchwingerClusterState,
-                          TwoLevelState, StatsState)}
+                          TwoLevelState, StatsState, HMCState, ExactState)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -87,3 +89,32 @@ def action_constants(action, conditioned=None) -> dict:
                    log_I0_twobeta=float(bessel.log_I0_twobeta),
                    sigma_beta=float(bessel.sigma_beta))
     return out
+
+
+def qm_planes(x):
+    """[C, M] QM paths -> the two-level kernel's [2, C, M/2] even and odd
+    site planes, for torch tensors and for numpy or JAX arrays (numpy
+    out)."""
+    if isinstance(x, torch.Tensor):
+        return torch.stack([x[..., ::2], x[..., 1::2]])
+    x = np.asarray(x)
+    return np.stack([x[..., ::2], x[..., 1::2]])
+
+
+def qm_paths(fine):
+    """[2, C, Mc] even/odd planes -> [C, 2 Mc] paths (torch or numpy)."""
+    if isinstance(fine, torch.Tensor):
+        return torch.stack([fine[0], fine[1]], dim=-1).flatten(-2)
+    fine = np.asarray(fine)
+    return np.stack([fine[0], fine[1]], axis=-1).reshape(
+        *fine.shape[1:-1], -1)
+
+
+def qm_s_cache(fine_action, conditioned, x):
+    """The two-level kernel's [2, C] cache (S_fine, S_cond) of paths x,
+    with either package's fine action and conditioned fill (x of that
+    package's array type; numpy out for the JAX package)."""
+    s_f, s_q = fine_action.evaluate(x), conditioned.evaluate(x)
+    if isinstance(x, torch.Tensor):
+        return torch.stack([s_f, s_q])
+    return np.stack([np.asarray(s_f), np.asarray(s_q)])

@@ -20,9 +20,12 @@ and a chunk's coarse samples go through the batched screen
 (make_batched_screen).  Each chunk takes a seed pair (int32[2]) drawn from
 the run's ``torch.Generator``: the kernels take it directly, an unfused
 chunk seeds a generator on the chains' device from it.  The host runs the
-adaptive outer loop.  A fused level whose field does not fit one block's
-shared memory raises NotImplementedError at its first launch on the card
-(``ops._cuda.check_smem``); a configuration without a ported conditioned
+adaptive outer loop.  A level whose fused kernel would need more shared
+memory per block than the card lets one block opt in to runs unfused with
+its factory's coarse sampler, as the JAX package does with fields beyond
+its VMEM budget (``_fused_fields_fit``); the plain versions on the CPU
+have no such limit.  The paths are chosen again for the device of each
+run (``init_carries``).  A configuration without a ported conditioned
 fill raises when its factory is called.
 
 Adaptive sample allocation (montecarlomultilevel.cc:147-164):
@@ -40,11 +43,11 @@ import numpy as np
 import torch
 
 from mlmcpathintegral_tpu_torch.mc.twolevel import (
-    make_batched_screen, make_coarse_subsampler,
+    chunk_generator, make_batched_screen, make_coarse_subsampler,
+    run_generators,
 )
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelMetropolisStep
 from mlmcpathintegral_tpu_torch.ops import _cuda
-from mlmcpathintegral_tpu_torch.ops.rng import seed_pair
 from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
 from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
 from mlmcpathintegral_tpu_torch.utils.timer import sync
@@ -93,6 +96,11 @@ class MonteCarloMultiLevel:
             self.actions.append(coarse)
             self.coarse_samplers.append(coarse_sampler_factory(coarse))
         self.coarsest_sampler = coarse_sampler_factory(self.actions[-1])
+        self._factory_samplers = (list(self.coarse_samplers),
+                                  self.coarsest_sampler)
+        #: the most shared memory one block may use on the run's device
+        #: (None: no limit, the plain versions on the CPU)
+        self._smem_limit = None
         self.qois = [qoi_factory(a) for a in self.actions]
         self.stats_qoi = [Statistics(f"Y[{ell}]", n_autocorr_window)
                           for ell in range(self.n_level)]
@@ -121,8 +129,13 @@ class MonteCarloMultiLevel:
         if not self._factory_is_heatbath(self.coarse_samplers[ell]):
             return False
         lat = act.lattice
-        return (act._coarsen_case() == "both"
-                and lat.Mt_lat % 2 == 0 and lat.Mx_lat % 2 == 0)
+        if not (act._coarsen_case() == "both"
+                and lat.Mt_lat % 2 == 0 and lat.Mx_lat % 2 == 0):
+            return False
+        from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import (
+            twolevel_smem_bytes,
+        )
+        return self._fits(twolevel_smem_bytes(lat.Mt_lat, lat.Mx_lat)[2])
 
     def _fused_coarsest(self) -> bool:
         if not self.use_pallas:
@@ -132,7 +145,33 @@ class MonteCarloMultiLevel:
         )
         if not self._factory_is_heatbath(self.coarsest_sampler):
             return False
-        return type(self.actions[-1]) is QuenchedSchwingerAction
+        if type(self.actions[-1]) is not QuenchedSchwingerAction:
+            return False
+        from mlmcpathintegral_tpu_torch.ops.schwinger import sweep_smem_bytes
+        lat = self.actions[-1].lattice
+        return self._fits(sweep_smem_bytes(lat.Mt_lat, lat.Mx_lat)[2])
+
+    def _fits(self, block_bytes: int) -> bool:
+        """A fused kernel's block (its launch at full chains per block)
+        fits the run's device (``_fused_fields_fit`` of the JAX package)."""
+        return self._smem_limit is None or block_bytes <= self._smem_limit
+
+    @staticmethod
+    def _smem_limit_of(device: torch.device):
+        """The opt-in shared-memory limit of one block on ``device``; None
+        on the CPU, whose plain versions have none."""
+        if device.type == "cpu":
+            return None
+        return _cuda.max_smem_optin(device.index or 0)
+
+    def _select_paths(self, device) -> None:
+        """Choose fused or unfused per level for ``device``: a level whose
+        fused block does not fit runs unfused with its factory's sampler."""
+        limit = self._smem_limit_of(torch.device(device))
+        if limit != self._smem_limit:
+            self._smem_limit = limit
+            self._setup_fused()
+            self._build_unfused()
 
     @staticmethod
     def _factory_is_heatbath(sampler) -> bool:
@@ -150,6 +189,8 @@ class MonteCarloMultiLevel:
         from mlmcpathintegral_tpu_torch.samplers.heatbath import (
             OverrelaxedHeatBathSampler,
         )
+        self.coarse_samplers = list(self._factory_samplers[0])
+        self.coarsest_sampler = self._factory_samplers[1]
         for ell in range(self.n_level - 1):
             if self._fused_level(ell):
                 self.coarse_samplers[ell] = OverrelaxedHeatBathSampler(
@@ -249,12 +290,6 @@ class MonteCarloMultiLevel:
 
     # -- unfused path (mc/twolevel.py) -----------------------------------------
 
-    @staticmethod
-    def _chunk_generator(seed, device):
-        """A generator on ``device`` seeded from a chunk's seed pair."""
-        s1, s2 = seed_pair(seed)
-        return torch.Generator(device=device).manual_seed((s1 << 32) | s2)
-
     def _build_unfused(self):
         """The chunk functions of the unfused levels:
         ``chunk(seed, carry, n_active) -> (carry, ybar)``, as the fused
@@ -284,7 +319,7 @@ class MonteCarloMultiLevel:
     def _make_unfused_chunk(self, draw_coarse, screen):
         def chunk(seed, carry, n_active):
             cstate, tl, st_y, st_cs, st_slow, t_accum = carry
-            gen = self._chunk_generator(seed, tl.theta.device)
+            gen = chunk_generator(seed, tl.theta.device)
             xcs = []
             for _ in range(self.chunk_size):
                 cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
@@ -304,7 +339,7 @@ class MonteCarloMultiLevel:
         def chunk_L(seed, carry, n_active):
             cstate, st_y, st_cs, st_slow, t_accum = carry
             x = draw_coarse.sampler.x_of(cstate)
-            gen = self._chunk_generator(seed, x.device)
+            gen = chunk_generator(seed, x.device)
             ys = []
             for _ in range(self.chunk_size):
                 cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
@@ -369,20 +404,11 @@ class MonteCarloMultiLevel:
         states."""
         t_start = time.monotonic()
         device = _cuda.run_device(device)
-        if not isinstance(generator, torch.Generator):
-            generator = torch.Generator().manual_seed(int(generator))
         self.timings = {}   # wall-clock per phase
         L = self.n_level
-
-        def next_seed():
-            return torch.randint(-2**31, 2**31 - 1, (2,), generator=generator,
-                                 dtype=torch.int32)
-
         # set-up noise is drawn on the device by a generator seeded from
         # the run's generator
-        setup_gen = torch.Generator(device=device)
-        setup_gen.manual_seed(int(torch.randint(
-            2**62, (1,), generator=generator)))
+        next_seed, setup_gen = run_generators(generator, device)
 
         carries, carry_L = self.init_carries(setup_gen, n_chains, dtype,
                                              device)
@@ -538,7 +564,9 @@ class MonteCarloMultiLevel:
         :meth:`evaluate` starts: sampler prepare (incl. burn-in),
         prolongate + conditioned fill of the initial coarse sample (a
         draw from q), cached action values, empty statistics.  The set-up
-        noise comes from ``setup_gen``, a generator on ``device``."""
+        noise comes from ``setup_gen``, a generator on ``device``, and the
+        levels' paths are chosen for ``device`` first."""
+        self._select_paths(device)
         L = self.n_level
         carries = []
         for ell in range(L - 1):

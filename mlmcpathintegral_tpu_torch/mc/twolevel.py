@@ -1,7 +1,8 @@
-"""Coarse subsampling and the batched delayed-acceptance screen of the
-unfused multilevel path (PyTorch port of the first half of
+"""Two-level Monte Carlo (PyTorch port of
 ``mlmcpathintegral_tpu/mc/twolevel.py``; reference
-src/montecarlo/montecarlotwolevel.{hh,cc}).
+src/montecarlo/montecarlotwolevel.{hh,cc}): the coarse subsampling and the
+batched delayed-acceptance screen that the unfused multilevel path shares,
+and ``MonteCarloTwoLevel``, the mean and variance of Y = Q_fine - Q_coarse.
 
 ``make_coarse_subsampler`` draws one roughly independent coarse sample:
 t = ceil(2 tau_int) coarse draws (capped at t_max), with tau_int read
@@ -11,14 +12,55 @@ two-level Metropolis test: because every fill is conditionally
 independent of the current fine state, the proposals of the chunk are one
 batched tensor program; only the accept/reject chain over [C] scalars
 runs step by step.
+
+``MonteCarloTwoLevel`` runs a chunk of ``chunk_size`` samples per call:
+on its fused path (harmonic or quartic fine action, HMC coarse sampler,
+Gaussian fill) one launch of the QM two-level kernel (ops/qm_twolevel.py),
+else a batched-screen chunk whose coarse samples come from one batched
+draw of an exact sampler or from the subsampler.  Each chunk takes a seed
+pair drawn from the run's ``torch.Generator``: the kernel takes it
+directly, an unfused chunk seeds a generator on the chains' device from
+it.
 """
 
 from __future__ import annotations
 
+import math
+import time
+
 import torch
 
 from mlmcpathintegral_tpu_torch.distributions.rejection import uniform
+from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelMetropolisStep
+from mlmcpathintegral_tpu_torch.ops import _cuda
+from mlmcpathintegral_tpu_torch.ops.rng import seed_pair
 from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
+from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
+from mlmcpathintegral_tpu_torch.utils.timer import sync
+
+
+def chunk_generator(seed, device) -> torch.Generator:
+    """A generator on ``device`` seeded from a chunk's seed pair."""
+    s1, s2 = seed_pair(seed)
+    return torch.Generator(device=device).manual_seed((s1 << 32) | s2)
+
+
+def run_generators(generator, device):
+    """(next_seed, setup_gen) of a run: ``next_seed()`` draws a chunk's
+    int32 seed pair from ``generator`` (a CPU ``torch.Generator``, or an
+    int seed for one); ``setup_gen`` is a generator on ``device`` seeded
+    from it, for the set-up noise."""
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator().manual_seed(int(generator))
+
+    def next_seed():
+        return torch.randint(-2**31, 2**31 - 1, (2,), generator=generator,
+                             dtype=torch.int32)
+
+    setup_gen = torch.Generator(device=device)
+    setup_gen.manual_seed(int(torch.randint(2**62, (1,),
+                                            generator=generator)))
+    return next_seed, setup_gen
 
 
 def make_coarse_subsampler(coarse_sampler, qoi_coarse, t_max: int = 100):
@@ -85,19 +127,21 @@ def metropolis_chain(init, S_f, S_q, S_cc, qf, u):
 def make_batched_screen(fine_action, coarse_action, cond, qoi_fine,
                         qoi_coarse, *, slice_budget_bytes: int = 2 ** 28):
     """Batched delayed-acceptance screen.  Returns
-    screen(generator, tl, xcs) -> (tl', qf_trace, qc_trace, accept_trace),
-    traces [S, C], for the coarse samples xcs [S, C, ndof_c].  Proposals
-    go in slices so that the [S, C, ndof] tensor stays within
-    ``slice_budget_bytes``."""
+    screen(generator, tl, xcs, s_cc_pre=None) -> (tl', qf_trace, qc_trace,
+    accept_trace), traces [S, C], for the coarse samples xcs
+    [S, C, ndof_c]; ``s_cc_pre`` [S, C], when given, is their coarse action
+    (an exact sampler's draw computes it already).  Proposals go in slices
+    so that the [S, C, ndof] tensor stays within ``slice_budget_bytes``."""
 
-    def screen_slice(generator, tl, s_cc0, qf0, xcs):
+    def screen_slice(generator, tl, s_cc0, qf0, xcs, s_cc_pre=None):
         S = xcs.shape[0]
         theta = fine_action.prolongate(
             xcs, tl.theta.expand(S, *tl.theta.shape))
         theta = cond.fill_fine_points(generator, theta)
         S_q = cond.evaluate(theta)                    # [S, C]
         S_f = fine_action.evaluate(theta)
-        S_cc = coarse_action.evaluate(xcs)
+        S_cc = (coarse_action.evaluate(xcs) if s_cc_pre is None
+                else s_cc_pre)
         qf = qoi_fine(theta)
         u = uniform(generator, S_f.shape, S_f.dtype, S_f.device)
         (s_f, s_q, s_cc, q_cur), idx, qf_trace, acc = metropolis_chain(
@@ -111,7 +155,7 @@ def make_batched_screen(fine_action, coarse_action, cond, qoi_fine,
         return (type(tl)(theta=theta_fin, S_fine=s_f, S_cond=s_q), s_cc,
                 q_cur, qf_trace, acc)
 
-    def screen(generator, tl, xcs):
+    def screen(generator, tl, xcs, s_cc_pre=None):
         S, C = xcs.shape[0], xcs.shape[1]
         ndof = tl.theta.shape[-1]
         s_slice = max(1, min(S, slice_budget_bytes // max(C * ndof * 4, 1)))
@@ -122,9 +166,312 @@ def make_batched_screen(fine_action, coarse_action, cond, qoi_fine,
         qf_all, acc_all = [], []
         for lo in range(0, S, s_slice):
             tl, s_cc0, qf0, qf_c, acc = screen_slice(
-                generator, tl, s_cc0, qf0, xcs[lo:lo + s_slice])
+                generator, tl, s_cc0, qf0, xcs[lo:lo + s_slice],
+                None if s_cc_pre is None else s_cc_pre[lo:lo + s_slice])
             qf_all.append(qf_c)
             acc_all.append(acc)
         return tl, torch.cat(qf_all), qoi_coarse(xcs), torch.cat(acc_all)
 
     return screen
+
+
+class MonteCarloTwoLevel:
+
+    def __init__(self, fine_action, qoi_factory, coarse_sampler_factory,
+                 conditioned_fine_action_factory, *,
+                 n_burnin: int = 100, n_samples: int = 10000,
+                 n_autocorr_window: int = 20,
+                 n_coarse_autocorr_window: int = 20,
+                 n_fine_autocorr_window: int = 20,
+                 n_delta_autocorr_window: int = 20,
+                 chunk_size: int = 256, use_pallas: bool = False,
+                 t_sub_min: int = 2):
+        self.fine_action = fine_action
+        self.coarse_action = fine_action.coarse_action()
+        self.qoi_fine = qoi_factory(fine_action)
+        self.qoi_coarse = qoi_factory(self.coarse_action)
+        self.coarse_sampler = coarse_sampler_factory(self.coarse_action)
+        self.conditioned_fine_action = conditioned_fine_action_factory(
+            fine_action)
+        self.twolevel_step = TwoLevelMetropolisStep(
+            self.coarse_action, fine_action, self.conditioned_fine_action)
+        self.n_burnin = int(n_burnin)
+        self.n_samples = int(n_samples)
+        self.chunk_size = int(chunk_size)
+        self.stats_fine = Statistics("QoI[fine]", n_fine_autocorr_window)
+        self.stats_coarse = Statistics("QoI[coarse]",
+                                       n_coarse_autocorr_window)
+        self.stats_diff = Statistics("delta QoI", n_delta_autocorr_window)
+        self.stats_cs = Statistics("QoI[coarsesampler]", n_autocorr_window)
+        self.stats_slow = Statistics("E[coarsesampler]", n_autocorr_window)
+        self.t_sub_min = int(t_sub_min)
+        self._fused_params = self._fused_qm_spec() if use_pallas else None
+        if not self.conditioned_fine_action.independent_fill:
+            raise NotImplementedError(
+                "the sequential two-level screen for fills that read the "
+                "current fine state is not ported (ROADMAP.md item 9); "
+                "every ported fill is independent")
+        self._chunk = self._make_batched_chunk(
+            make_coarse_subsampler(self.coarse_sampler, self.qoi_coarse),
+            make_batched_screen(fine_action, self.coarse_action,
+                                self.conditioned_fine_action, self.qoi_fine,
+                                self.qoi_coarse))
+
+    def _make_batched_chunk(self, draw_coarse, screen):
+        """``chunk(seed, carry, n_active) -> (carry, n_acc)``: chunk_size
+        coarse samples (one batched draw of an iid sampler, else
+        subsampled one by one), then the batched screen of all of them;
+        the statistics record the leading ``n_active`` samples."""
+        batch_draw = (getattr(self.coarse_sampler, "draw_batch", None)
+                      if getattr(self.coarse_sampler, "independent_draws",
+                                 False) else None)
+        bdwa = getattr(self.coarse_sampler, "draw_batch_with_action", None)
+        n = self.chunk_size
+
+        def chunk(seed, carry, n_active):
+            cstate, tl, st_f, st_c, st_d, st_cs, t_accum = carry
+            gen = chunk_generator(seed, tl.theta.device)
+            s_cc_pre = None
+            if batch_draw is not None:
+                if bdwa is not None:
+                    cstate, xcs, s_cc_pre = bdwa(gen, cstate, n)
+                else:
+                    cstate, xcs = batch_draw(gen, cstate, n)
+                st_cs = stats_mod.record_many(st_cs, self.qoi_coarse(xcs))
+                sum_t, n_indep = t_accum
+                t_accum = (sum_t + float(n), n_indep + float(n))
+            else:
+                xs = []
+                for _ in range(n):
+                    cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
+                                                         t_accum)
+                    xs.append(self.coarse_sampler.x_of(cstate))
+                xcs = torch.stack(xs)
+            tl, qf, qc, acc = screen(gen, tl, xcs, s_cc_pre)
+            st_f = stats_mod.record_block(st_f, qf, n_valid=n_active)
+            st_c = stats_mod.record_block(st_c, qc, n_valid=n_active)
+            st_d = stats_mod.record_block(st_d, qf - qc, n_valid=n_active)
+            n_acc = torch.sum(acc[:n_active])
+            return (cstate, tl, st_f, st_c, st_d, st_cs, t_accum), n_acc
+
+        return chunk
+
+    # -- fused QM path (ops/qm_twolevel.py) -------------------------------------
+
+    def _fused_qm_spec(self):
+        """Kernel parameters when the fused QM two-level kernel supports
+        this configuration (harmonic or quartic fine action, HMC coarse
+        sampler with one repetition, Gaussian fill), else None."""
+        from mlmcpathintegral_tpu_torch.conditioned.qm import (
+            GaussianConditionedFineAction,
+        )
+        from mlmcpathintegral_tpu_torch.ops.hmc import action_kernel_params
+        from mlmcpathintegral_tpu_torch.samplers.hmc import HMCSampler
+        if type(self.conditioned_fine_action) is not \
+                GaussianConditionedFineAction:
+            return None
+        if not isinstance(self.coarse_sampler, HMCSampler) \
+                or self.coarse_sampler.n_rep != 1:
+            return None
+        kind, params = action_kernel_params(self.fine_action)
+        if kind not in ("harmonic", "quartic"):
+            return None
+        params = dict(params)
+        params.setdefault("lam", 0.0)
+        params.setdefault("x0", 0.0)
+        return params
+
+    def _make_fused_chunk(self, t_sub: int, with_traces: bool = True):
+        """``chunk(seed, carry, n_active) -> (carry, n_acc)``: one launch
+        of the two-level kernel over chunk_size steps.  ``with_traces``
+        keeps the per-trajectory clock traces (burn-in, the t_sub
+        measurement); the sampling chunks drop them."""
+        from mlmcpathintegral_tpu_torch.ops.qm_twolevel import (
+            qm_twolevel_chain,
+        )
+        p = self._fused_params
+        nt = self.coarse_sampler.nt
+        chunk_size = self.chunk_size
+        inv_Mc = 1.0 / self.coarse_action.lattice.M_lat
+
+        def chunk(seed, carry, n_active):
+            fine, xc, scache, dt, st_f, st_c, st_d, st_cs, st_slow = carry
+            fine, xc, scache, qf, qc, cs, ec, acc = qm_twolevel_chain(
+                fine, xc, scache, dt, seed, nt=nt, n_steps=chunk_size,
+                t_sub=t_sub, with_traces=with_traces, **p)
+            st_f = stats_mod.record_block(st_f, qf, n_valid=n_active)
+            st_c = stats_mod.record_block(st_c, qc, n_valid=n_active)
+            st_d = stats_mod.record_block(st_d, qf - qc, n_valid=n_active)
+            if with_traces:
+                st_cs = stats_mod.record_many(st_cs, cs)
+                # intensive energy (per coarse site): the configuration
+                # slow mode feeding the t_sub clock
+                st_slow = stats_mod.record_many(st_slow, inv_Mc * ec)
+            n_acc = torch.sum(acc[:n_active], dtype=torch.float32)
+            return (fine, xc, scache, dt, st_f, st_c, st_d, st_cs,
+                    st_slow), n_acc
+
+        return chunk
+
+    def _fused_t_sub(self):
+        """t_sub from the measured clock: ceil(2 max(tau_QoI, tau_slow)) of
+        the per-trajectory coarse traces, floored at t_sub_min and capped
+        at 100 (montecarlotwolevel.cc:82-94 and the slow-mode rule)."""
+        tau_q = stats_mod.tau_int_device(self._st_cs_last)
+        tau_e = stats_mod.tau_int_device(self._st_slow_last)
+        tau = float(torch.maximum(tau_q, tau_e))
+        self.tau_slow = float(tau_e)
+        return int(min(100, max(self.t_sub_min, math.ceil(2.0 * tau))))
+
+    def _evaluate_difference_fused(self, generator, n_chains, dtype, device):
+        from mlmcpathintegral_tpu_torch.convert import qm_planes, qm_s_cache
+        t0 = time.monotonic()
+        self.timings = {}
+        next_seed, setup_gen = run_generators(generator, device)
+        cstate = self.coarse_sampler.prepare(setup_gen, n_chains, dtype,
+                                             device)
+        x_fine = self.fine_action.initialise_state(setup_gen, n_chains,
+                                                   dtype, device)
+        x_fine = self.fine_action.prolongate(cstate.x, x_fine)
+        x_fine = self.conditioned_fine_action.fill_fine_points(setup_gen,
+                                                               x_fine)
+        carry = (qm_planes(x_fine), cstate.x,
+                 qm_s_cache(self.fine_action, self.conditioned_fine_action,
+                            x_fine), cstate.dt,
+                 self.stats_fine.init(n_chains, dtype, device),
+                 self.stats_coarse.init(n_chains, dtype, device),
+                 self.stats_diff.init(n_chains, dtype, device),
+                 self.stats_cs.init(n_chains, dtype, device),
+                 self.stats_slow.init(n_chains, dtype, device))
+        sync(carry)
+        self.timings["prepare_s"] = time.monotonic() - t0
+
+        t_phase = time.monotonic()
+        t_sub = self.t_sub_min
+        chunk = self._make_fused_chunk(t_sub)
+        n_burn = 0
+        while n_burn < self.n_burnin:
+            n = min(self.chunk_size, self.n_burnin - n_burn)
+            carry, _ = chunk(next_seed(), carry, n)
+            n_burn += n
+        sync(carry)
+        self.timings["burnin_s"] = time.monotonic() - t_phase
+
+        # the t_sub clock from the burn-in traces (ratchet up only)
+        t_phase = time.monotonic()
+        self._st_cs_last, self._st_slow_last = carry[7], carry[8]
+        t_sub = max(t_sub, self._fused_t_sub())
+        chunk = self._make_fused_chunk(t_sub, with_traces=False)
+        self._t_sub = t_sub
+        # hard reset of the Y statistics after burn-in
+        # (montecarlotwolevel.cc:66-69)
+        carry = carry[:4] + (
+            self.stats_fine.init(n_chains, dtype, device),
+            self.stats_coarse.init(n_chains, dtype, device),
+            self.stats_diff.init(n_chains, dtype, device)) + carry[7:]
+        sync(carry)
+        self.timings["tsub_update_s"] = time.monotonic() - t_phase
+
+        t_phase = time.monotonic()
+        n_accepted = torch.zeros((), dtype=torch.float32, device=device)
+        n_done = 0
+        local_target = -(-self.n_samples // n_chains)
+        while n_done < local_target:
+            n = min(self.chunk_size, local_target - n_done)
+            carry, n_acc = chunk(next_seed(), carry, n)
+            n_accepted = n_accepted + n_acc
+            n_done += n
+        sync(carry)
+        self.timings["sampling_s"] = time.monotonic() - t_phase
+        self.elapsed_s = time.monotonic() - t0
+        _, _, _, _, st_f, st_c, st_d, st_cs, st_slow = carry
+        self.p_accept = float(n_accepted) / (n_done * n_chains)
+        self.t_indep = float(t_sub)
+        self._st_cs_last, self._st_slow_last = st_cs, st_slow
+        return {"fine": st_f, "coarse": st_c, "diff": st_d,
+                "coarse_sampler": st_cs, "coarse_slow": st_slow}
+
+    def evaluate_difference(self, generator, n_chains: int,
+                            dtype=torch.float32, device="cuda",
+                            verbose: bool = False):
+        """Burn-in, then record n_samples of (Q_f, Q_c, Y); returns the
+        statistics states by name (montecarlotwolevel.cc:38-79).
+        ``generator``: a CPU ``torch.Generator`` (or an int seed for one)
+        from which every chunk's seed pair and the set-up noise are drawn;
+        ``device``: where the chains live, the card unless the caller asks
+        for the CPU ("cuda" runs the kernels, which take float32; "cpu"
+        their plain versions, in any float dtype)."""
+        device = _cuda.run_device(device)
+        if self._fused_params is not None:
+            return self._evaluate_difference_fused(generator, n_chains,
+                                                   dtype, device)
+        t0 = time.monotonic()
+        self.timings = {}
+        next_seed, setup_gen = run_generators(generator, device)
+        cstate = self.coarse_sampler.prepare(setup_gen, n_chains, dtype,
+                                             device)
+        # the fine chain starts from prolongate + fill of the initial
+        # coarse sample: a draw from the proposal itself, so the screened
+        # chain never starts in its tail
+        x_fine = self.fine_action.initialise_state(setup_gen, n_chains,
+                                                   dtype, device)
+        x_fine = self.fine_action.prolongate(
+            self.coarse_sampler.x_of(cstate), x_fine)
+        x_fine = self.conditioned_fine_action.fill_fine_points(setup_gen,
+                                                               x_fine)
+        zero = torch.zeros((), dtype=dtype, device=device)
+        carry = (cstate, self.twolevel_step.init(x_fine),
+                 self.stats_fine.init(n_chains, dtype, device),
+                 self.stats_coarse.init(n_chains, dtype, device),
+                 self.stats_diff.init(n_chains, dtype, device),
+                 self.stats_cs.init(n_chains, dtype, device), (zero, zero))
+        # accepted moves accumulate on the device: no host read per chunk
+        n_accepted = torch.zeros((), dtype=torch.float64, device=device)
+        sync(carry)
+        self.timings["prepare_s"] = time.monotonic() - t0
+
+        # burn-in, then a hard reset of the Y statistics
+        # (montecarlotwolevel.cc:66-69)
+        t_phase = time.monotonic()
+        n_burn = 0
+        while n_burn < self.n_burnin:
+            n = min(self.chunk_size, self.n_burnin - n_burn)
+            carry, _ = self._chunk(next_seed(), carry, n)
+            n_burn += n
+        cstate, tl, _, _, _, st_cs, t_accum = carry
+        carry = (cstate, tl, self.stats_fine.init(n_chains, dtype, device),
+                 self.stats_coarse.init(n_chains, dtype, device),
+                 self.stats_diff.init(n_chains, dtype, device), st_cs,
+                 t_accum)
+        if verbose:
+            print("Burnin completed")
+        sync(carry)
+        self.timings["burnin_s"] = time.monotonic() - t_phase
+
+        t_phase = time.monotonic()
+        n_done = 0
+        local_target = -(-self.n_samples // n_chains)
+        while n_done < local_target:
+            n = min(self.chunk_size, local_target - n_done)
+            carry, n_acc = self._chunk(next_seed(), carry, n)
+            n_accepted = n_accepted + n_acc
+            n_done += n
+        sync(carry)
+        # the sampling phase's wall: the scope of the reference baseline's
+        # eff formula (burn-in and set-up excluded)
+        self.timings["sampling_s"] = time.monotonic() - t_phase
+        self.elapsed_s = time.monotonic() - t0
+        _, _, st_f, st_c, st_d, st_cs, (sum_t, n_indep) = carry
+        self.p_accept = float(n_accepted) / (n_done * n_chains)
+        self.t_indep = float(sum_t) / max(float(n_indep), 1.0)
+        return {"fine": st_f, "coarse": st_c, "diff": st_d,
+                "coarse_sampler": st_cs}
+
+    def show_statistics(self, stats):
+        print(self.stats_fine.summary(stats["fine"]))
+        print(self.stats_coarse.summary(stats["coarse"]))
+        print(self.stats_diff.summary(stats["diff"]))
+        print("=== Coarse level sampler statistics ===")
+        print(self.stats_cs.summary(stats["coarse_sampler"]))
+        print(f" subsampling t_indep = {self.t_indep:.3f}")
+        print(f" two-level acceptance = {self.p_accept:.4f}")

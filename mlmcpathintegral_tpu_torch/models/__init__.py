@@ -1,7 +1,13 @@
 from mlmcpathintegral_tpu_torch.models.base import (
     Action, QMAction, RenormalisationType,
 )
+from mlmcpathintegral_tpu_torch.models.harmonic import (
+    HarmonicOscillatorAction,
+)
 from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
     QuenchedSchwingerAction,
+)
+from mlmcpathintegral_tpu_torch.models.quartic import (
+    QuarticOscillatorAction,
 )
 from mlmcpathintegral_tpu_torch.models.rotor import RotorAction

@@ -15,6 +15,8 @@ from enum import Enum
 
 import torch
 
+from mlmcpathintegral_tpu_torch.distributions.rejection import normal
+
 
 class RenormalisationType(Enum):
     """Parameter renormalisation between multigrid levels
@@ -89,6 +91,26 @@ class QMAction(Action):
     @abc.abstractmethod
     def getWcurvature(self, x_m, x_p):
         """Curvature W'' at the minimum."""
+
+    def heatbath_site(self, generator, x_m, x_p, x_cur=None):
+        """New site values from N(Wminimum, 1/Wcurvature) given the
+        neighbours: exact for actions quadratic in one site (harmonic
+        oscillator), the reference's Gaussian approximation for the
+        quartic one (qmaction.hh:150-170).  ``x_cur`` is for rejection
+        samplers that truncate their loops; the Gaussian draw ignores it."""
+        mean = self.getWminimum(x_m, x_p)
+        curv = self.getWcurvature(x_m, x_p)
+        xi = normal(generator, mean.shape, mean.dtype, mean.device)
+        return mean + xi / torch.sqrt(curv)
+
+    def overrelax_site(self, x, x_m, x_p):
+        """Overrelaxation: reflect x about the W minimum."""
+        return 2.0 * self.getWminimum(x_m, x_p) - x
+
+    def initialise_state(self, generator, n_chains, dtype, device):
+        """Cold start: all sites zero."""
+        return torch.zeros((n_chains, self.M_lat), dtype=dtype,
+                           device=device)
 
     def prolongate(self, x_coarse, x_fine):
         """x_fine[..., 2j] = x_coarse[..., j] (qmaction.cc:7-15)."""

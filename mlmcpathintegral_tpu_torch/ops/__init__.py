@@ -3,6 +3,8 @@ hand-written CUDA kernel (``csrc/``) for CUDA tensors and its plain
 PyTorch version for CPU tensors; :func:`counters` lists their launch
 counters."""
 
+from mlmcpathintegral_tpu_torch.ops.hmc import HMC
+from mlmcpathintegral_tpu_torch.ops.qm_twolevel import QM_TWOLEVEL
 from mlmcpathintegral_tpu_torch.ops.rng import RNG_FILL
 from mlmcpathintegral_tpu_torch.ops.rotor import CLUSTER as ROTOR_CLUSTER
 from mlmcpathintegral_tpu_torch.ops.rotor import SWEEP as ROTOR_SWEEP
@@ -13,7 +15,8 @@ from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import TWOLEVEL
 def counters():
     """The :class:`~mlmcpathintegral_tpu_torch.ops._cuda.KernelCounter`
     of every kernel wrapper."""
-    return [RNG_FILL, SWEEP, TWOLEVEL, ROTOR_SWEEP, ROTOR_CLUSTER]
+    return [RNG_FILL, SWEEP, TWOLEVEL, ROTOR_SWEEP, ROTOR_CLUSTER, HMC,
+            QM_TWOLEVEL]
 
 
 def reset_counters() -> None:

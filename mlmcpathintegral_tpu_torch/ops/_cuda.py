@@ -59,6 +59,10 @@ _SIGNATURES = {
     "mlmc_rotor_cluster": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
                            c_float, c_u32, c_u32, c_int, c_int, c_size,
                            c_ptr],
+    "mlmc_hmc_trajectory": [c_ptr] * 6 + [c_int] * 4 + [c_float] * 9
+    + [c_int, c_int, c_size, c_ptr],
+    "mlmc_qm_twolevel": [c_ptr] * 12 + [c_int] * 6 + [c_float] * 17
+    + [c_u32, c_u32, c_int, c_int, c_size, c_ptr],
 }
 
 
@@ -178,16 +182,14 @@ def max_smem_optin(device_index: int) -> int:
 def check_smem(nbytes: int, device: torch.device, what: str) -> None:
     """Refuse a launch whose block needs more dynamic shared memory than
     the device lets one block opt in to.  The kernels keep a chain's whole
-    field in one block; a multilevel run with larger fields can take the
-    unfused path (``use_pallas=False``), and choosing it by itself is a
-    later slice (ROADMAP.md item 9)."""
+    field in one block; ``MonteCarloMultiLevel`` runs a level whose field
+    does not fit unfused by itself, and this guard stops a direct call."""
     limit = max_smem_optin(device.index or 0)
     if nbytes > limit:
         raise NotImplementedError(
             f"{what} needs {nbytes} B of shared memory per block; the "
-            f"device allows {limit}.  Run such levels unfused "
-            f"(use_pallas=False); falling back by itself is a later slice "
-            f"(ROADMAP.md item 9)")
+            f"device allows {limit}.  The fused kernels take no larger "
+            f"fields: MonteCarloMultiLevel runs such levels unfused")
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -213,12 +215,14 @@ def next_pow2(n: int) -> int:
     return 1 << max(0, (int(n) - 1).bit_length())
 
 
-def block_layout(n_items: int, target_threads: int = 64):
+def block_layout(n_items: int, target_threads: int = 64,
+                 max_threads: int = 1024):
     """(threads per chain, chains per block) for kernels that put one
-    chain on a power-of-two group of threads: at most 1024 threads per
-    chain (a group loops over more items than threads), and several
+    chain on a power-of-two group of threads: at most ``max_threads``
+    threads per chain (a group loops over more items than threads; a
+    kernel whose threads hold many registers takes fewer), and several
     chains per block while a block has fewer than ``target_threads``."""
-    tpc = min(1024, next_pow2(n_items))
+    tpc = min(max_threads, next_pow2(n_items))
     cpb = max(1, target_threads // tpc)
     return tpc, cpb
 

@@ -30,6 +30,17 @@ f32, chunk 256), prepares its carries as ``evaluate`` does, and measures:
             batched screen of one chunk.  Its trace is parsed and deleted:
             it holds hundreds of thousands of small kernels.
 
+  qm      - the QM paths: D (``harmonic_hmc``, ``bench_harmonic``'s HMC
+            chain on the trajectory kernel) and C (``quartic_twolevel``,
+            ``bench_quartic_twolevel``'s two-level run on the trajectory and
+            two-level kernels), each once under the profiler (device
+            activity only): the bench row's fields, then ``device_busy_ms``
+            and ``idle_share`` over the profiled wall (path D: its 8
+            measured chunks; path C: the whole measured call, set-up
+            included, and the sampling phase alone: its four two-level
+            launches against ``sampling_s``) and each kernel's device ms
+            and launches.  ``--qm-only`` runs this probe alone.
+
 With ``--accuracy-seeds`` it also runs :func:`cluster_accuracy` (path A
 and its configuration with unfused heat-bath coarse chains at those seeds,
 and the coarse samplers alone; ``--accuracy-configs`` picks among them,
@@ -44,11 +55,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import time
 from pathlib import Path
 
 import torch
+
+REPO = Path(__file__).resolve().parents[1]
 
 N_CHAINS = 1024
 SCALING_CHAINS = (256, 1024, 4096, 16384)
@@ -115,6 +129,246 @@ def _schwinger_mlmc(coarse_sampler_factory, use_pallas=True):
         conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
         n_level=2, n_burnin=100, n_samples=100_000, chunk_size=256,
         use_pallas=use_pallas)
+
+
+# -- the QM paths (bench.py's harmonic and quartic_twolevel rows) -------------
+
+def _ref_run(run: str) -> dict:
+    """One run of the C++ reference (``baselines/ref_baselines.json``);
+    empty without the file."""
+    try:
+        return json.loads((REPO / "baselines" / "ref_baselines.json")
+                          .read_text()).get("runs", {}).get(run, {})
+    except (OSError, ValueError):
+        return {}
+
+
+def _ref_eff(run: str):
+    """Effective samples/s of one run of the C++ reference times the
+    host's core count (``baselines/ncores.txt``), as ``bench.py``'s
+    ``_ref_eff(run, core_scaled=True)``; None without the files."""
+    eff = _ref_run(run).get("eff_samples_per_sec")
+    try:
+        ncores = int((REPO / "baselines" / "ncores.txt").read_text().split()[0])
+    except (OSError, ValueError):
+        return None
+    return None if eff is None else eff * ncores
+
+
+def harmonic_hmc_sampler():
+    """``bench_harmonic``'s model and sampler: M=64, T=4, m0=mu2=1, HMC
+    with nt=20, dt=0.1, 50 burn-in draws, on the trajectory kernel."""
+    from mlmcpathintegral_tpu_torch.lattice import Lattice1D
+    from mlmcpathintegral_tpu_torch.models import HarmonicOscillatorAction
+    from mlmcpathintegral_tpu_torch.samplers import HMCSampler
+    action = HarmonicOscillatorAction(Lattice1D(64, 4.0), m0=1.0, mu2=1.0)
+    return action, HMCSampler(action, nt=20, dt=0.1, n_burnin=50,
+                              use_pallas=True)
+
+
+def harmonic_hmc(seed=0, device="cuda", n_chains=8192, n_chunks=8,
+                 steps=64, profile=False):
+    """Path D, ``bench_harmonic`` (bench.py:173-247) unchanged: prepare
+    (burn-in, autotune), one warm chunk of ``steps`` draws, a soft reset,
+    then ``n_chunks`` chunks, each draw's mean x^2 recorded into
+    Statistics("Q", 40).  Returns the bench row's fields (eff = n / (wall
+    tau)) and, with ``profile``, the measured chunks' device-busy time."""
+    from mlmcpathintegral_tpu_torch.qoi import qoi_x_squared
+    from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
+    from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
+    from mlmcpathintegral_tpu_torch.ops import _cuda
+    from mlmcpathintegral_tpu_torch.utils.timer import sync
+    device = _cuda.run_device(device)
+    action, sampler = harmonic_hmc_sampler()
+    qoi = qoi_x_squared(action.lattice)
+    stats = Statistics("Q", 40)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.monotonic()
+    state = sampler.prepare(gen, n_chains, torch.float32, device)
+    sync(state)
+    prepare_s = time.monotonic() - t0
+
+    def chunk(state, st):
+        for _ in range(steps):
+            state, _ = sampler.draw(gen, state)
+            st = stats_mod.record(st, qoi(state.x))
+        return state, st
+
+    st = stats.init(n_chains, torch.float32, device)
+    state, st = chunk(state, st)
+    sync(st)
+    st = stats_mod.soft_reset(st)
+
+    def measured(state, st):
+        t0 = time.monotonic()
+        for _ in range(n_chunks):
+            state, st = chunk(state, st)
+        sync(st)
+        return state, st, time.monotonic() - t0
+
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, st, wall = measured(state, st)
+    else:
+        state, st, wall = measured(state, st)
+    n = n_chunks * steps * n_chains
+    tau = stats.tau_int(st)
+    avg, err = stats.average(st), stats.error(st)
+    oracle = action.Xsquared_analytical()
+    eff = n / wall / tau
+    base = _ref_eff("harmonic_hmc")
+    res = {"bench": "hmc_harmonic", "M": 64, "n_chains": n_chains,
+           "nt": sampler.nt, "dt": float(state.dt), "prepare_s": prepare_s,
+           "wall_s": wall, "samples_per_sec": n / wall, "tau_int": tau,
+           "avg_x2": avg, "err": err, "oracle_x2": oracle,
+           "sigma_dev": abs(avg - oracle) / err, "eff_samples_per_sec": eff,
+           "vs_baseline": eff / base if base else None}
+    return (res, prof) if profile else res
+
+
+def qm_twolevel_mc(kind="quartic", n_chains=4096):
+    """``bench_quartic_twolevel``'s MonteCarloTwoLevel (bench.py:606-681):
+    M=64, T=4, m0=mu2=lam=x0=1, no renormalisation; coarse HMC (nt=100,
+    dt=0.1, 100 burn-in draws) on the trajectory kernel; Gaussian fill;
+    256 samples per chain in chunks of 64; windows 40; the fused two-level
+    kernel.  ``kind="harmonic"`` takes HarmonicOscillatorAction(m0=mu2=1)
+    with the same settings (path C', the analytic cross-check)."""
+    from mlmcpathintegral_tpu_torch.conditioned import (
+        make_conditioned_fine_action,
+    )
+    from mlmcpathintegral_tpu_torch.lattice import Lattice1D
+    from mlmcpathintegral_tpu_torch.mc import MonteCarloTwoLevel
+    from mlmcpathintegral_tpu_torch.models import (
+        HarmonicOscillatorAction, QuarticOscillatorAction,
+    )
+    from mlmcpathintegral_tpu_torch.qoi import qoi_x_squared
+    from mlmcpathintegral_tpu_torch.samplers import HMCSampler
+    lat = Lattice1D(64, 4.0)
+    if kind == "quartic":
+        act = QuarticOscillatorAction(lat, m0=1.0, mu2=1.0, lam=1.0, x0=1.0)
+    else:
+        act = HarmonicOscillatorAction(lat, m0=1.0, mu2=1.0)
+    return MonteCarloTwoLevel(
+        act, qoi_x_squared,
+        coarse_sampler_factory=lambda a: HMCSampler(
+            a, nt=100, dt=0.1, n_burnin=100, use_pallas=True),
+        conditioned_fine_action_factory=make_conditioned_fine_action,
+        n_burnin=100, n_samples=256 * n_chains, chunk_size=64,
+        n_autocorr_window=40, n_coarse_autocorr_window=40,
+        n_fine_autocorr_window=40, n_delta_autocorr_window=40,
+        use_pallas=True)
+
+
+def quartic_twolevel(seed=14, kind="quartic", device="cuda", n_chains=4096,
+                     profile=False):
+    """Path C (C' with ``kind="harmonic"``), ``bench_quartic_twolevel``
+    unchanged: one warm-up call at n_samples = n_chains (seed), then the
+    measured call (seed + 1).  Returns the bench row's fields (eff = n_diff
+    / (tau(Y) sampling_s)); the quartic fine <x^2> is held against the C++
+    run's (combined sigma), the harmonic fine and coarse against their
+    actions' Xsquared_analytical.  With ``profile`` the measured call runs
+    under the profiler (device activity)."""
+    mc = qm_twolevel_mc(kind, n_chains)
+    mc.n_samples, real_n = n_chains, mc.n_samples
+    mc.evaluate_difference(torch.Generator().manual_seed(seed),
+                           n_chains=n_chains, device=device)
+    mc.n_samples = real_n
+    gen = torch.Generator().manual_seed(seed + 1)
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            stats = mc.evaluate_difference(gen, n_chains=n_chains,
+                                           device=device)
+    else:
+        stats = mc.evaluate_difference(gen, n_chains=n_chains, device=device)
+    wall = mc.timings["sampling_s"]
+    fine_avg = mc.stats_fine.average(stats["fine"])
+    fine_err = mc.stats_fine.error(stats["fine"])
+    n_diff = mc.stats_diff.samples(stats["diff"])
+    tau_d = mc.stats_diff.tau_int(stats["diff"])
+    eff = n_diff / (tau_d * wall)
+    res = {"bench": f"{kind}_twolevel", "M": 64, "n_chains": n_chains,
+           "seed": seed, "avg_x2": fine_avg, "err": fine_err,
+           "coarse_avg_x2": mc.stats_coarse.average(stats["coarse"]),
+           "coarse_err": mc.stats_coarse.error(stats["coarse"]),
+           "delta_avg": mc.stats_diff.average(stats["diff"]),
+           "delta_var_over_fine_var": (
+               mc.stats_diff.variance(stats["diff"])
+               / mc.stats_fine.variance(stats["fine"])),
+           "p_accept": mc.p_accept, "tau_int_delta": tau_d,
+           "t_indep": mc.t_indep, "tau_slow": mc.tau_slow, "wall_s": wall,
+           "wall_total_s": mc.elapsed_s, "timings": dict(mc.timings),
+           "samples_per_sec": n_diff / wall,
+           "eff_samples_per_sec": eff}
+    if kind == "quartic":
+        ref = _ref_run("quartic_twolevel").get("fine", {})
+        base = _ref_eff("quartic_twolevel")
+        res.update(ref_cpp_x2=ref.get("avg"), ref_cpp_err=ref.get("avg_err"),
+                   sigma_dev=(abs(fine_avg - ref["avg"]) / math.hypot(
+                       fine_err, ref.get("avg_err", 0.0))
+                       if "avg" in ref else None),
+                   vs_baseline=eff / base if base else None)
+    else:
+        oracles = [mc.fine_action.Xsquared_analytical(),
+                   mc.coarse_action.Xsquared_analytical()]
+        res.update(oracle_x2=oracles[0], coarse_oracle_x2=oracles[1],
+                   sigma_dev=abs(fine_avg - oracles[0]) / fine_err,
+                   coarse_sigma_dev=abs(res["coarse_avg_x2"] - oracles[1])
+                   / res["coarse_err"], vs_baseline=None)
+    return (res, prof) if profile else res
+
+
+def _profile_summary(prof, wall_s, named, last=None):
+    """Device-busy ms, idle share over ``wall_s`` and per-name device ms
+    and launches of a profiler run (device activity).  ``last`` = (name,
+    k, phase_s): also the device ms of that kernel's last k launches and
+    the idle share they leave in a phase of ``phase_s`` host seconds."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        ivals = device_intervals(path)
+    busy = union_ms([(s, e) for _, s, e in ivals])
+    out = {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / (wall_s * 1e3),
+           "device_events": len(ivals)}
+    for sub in named:
+        sel = [(e - s) / 1e3 for name, s, e in sorted(
+            ivals, key=lambda iv: iv[1]) if sub in name]
+        out[sub] = {"device_ms": sum(sel), "launches": len(sel),
+                    "ms_per_launch": sum(sel) / len(sel) if sel else None}
+        if last is not None and last[0] == sub:
+            k_ms = sum(sel[-last[1]:])
+            out[sub].update(last_launches=last[1], last_device_ms=k_ms,
+                            phase_ms=last[2] * 1e3,
+                            phase_idle_share=1.0 - k_ms / (last[2] * 1e3))
+    return out
+
+
+def qm_probe():
+    """Paths D and C once each under the profiler (module docstring)."""
+    from mlmcpathintegral_tpu_torch import ops
+    res = {}
+    ops.reset_counters()
+    row, prof = harmonic_hmc(profile=True)
+    res["path_D"] = {**row, **_profile_summary(
+        prof, row["wall_s"], ("hmc_trajectory",)),
+        "k5_launches": ops.HMC.launches}
+    ops.reset_counters()
+    row, prof = quartic_twolevel(profile=True)
+    # the sampling phase: 256 samples per chain in chunks of 64
+    n_sampling = -(-256 // 64)
+    res["path_C"] = {**row, **_profile_summary(
+        prof, row["wall_total_s"], ("hmc_trajectory", "qm_twolevel"),
+        last=("qm_twolevel", n_sampling, row["timings"]["sampling_s"])),
+        "k5_launches": ops.HMC.launches,
+        "k6_launches": ops.QM_TWOLEVEL.launches}
+    return res
 
 
 def union_ms(intervals) -> float:
@@ -464,6 +718,8 @@ def main(argv=None) -> int:
                     help="what cluster_accuracy runs")
     ap.add_argument("--accuracy-only", action="store_true",
                     help="run cluster_accuracy alone, no device probes")
+    ap.add_argument("--qm-only", action="store_true",
+                    help="run the QM paths' probe (qm) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe: no CUDA device")
@@ -474,10 +730,13 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.accuracy_only:
-        res = {"card": smi, "torch": torch.__version__,
-               "cluster_accuracy": cluster_accuracy(
-                   args.accuracy_seeds, args.accuracy_configs)}
+    if args.accuracy_only or args.qm_only:
+        res = {"card": smi, "torch": torch.__version__}
+        if args.accuracy_only:
+            res["cluster_accuracy"] = cluster_accuracy(
+                args.accuracy_seeds, args.accuracy_configs)
+        if args.qm_only:
+            res["qm"] = qm_probe()
         out.write_text(json.dumps(res, indent=1))
         print(json.dumps(res))
         return 0
@@ -497,7 +756,8 @@ def main(argv=None) -> int:
            "scaling": scaling(mc, carries, carry_L, args.reps),
            "cluster": cluster_probe(
                args.cluster_chunks,
-               trace.with_name(trace.stem + "_cluster.json"))}
+               trace.with_name(trace.stem + "_cluster.json")),
+           "qm": qm_probe()}
     if args.accuracy_seeds:
         res["cluster_accuracy"] = cluster_accuracy(args.accuracy_seeds,
                                                    args.accuracy_configs)

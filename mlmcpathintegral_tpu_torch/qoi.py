@@ -18,6 +18,13 @@ def _lattice_of(obj):
     return getattr(obj, "lattice", obj)
 
 
+def qoi_x_squared(lattice):
+    """<X^2> estimator: (1/M) sum_j x_j^2 (qoixsquared.cc:3-19)."""
+    def evaluate(x):
+        return torch.mean(x * x, dim=-1)
+    return evaluate
+
+
 def qoi_susceptibility(lattice):
     """Topological susceptibility chi_t = Q[x]^2 / T with winding number
     Q = (1/2pi) sum_j mod_2pi(x_j - x_{j-1}) (qoisusceptibility.cc:3-19)."""

@@ -2,9 +2,13 @@ from mlmcpathintegral_tpu_torch.samplers.base import Sampler
 from mlmcpathintegral_tpu_torch.samplers.cluster import (
     ClusterSampler, ClusterState,
 )
+from mlmcpathintegral_tpu_torch.samplers.exact import (
+    ExactSampler, ExactState,
+)
 from mlmcpathintegral_tpu_torch.samplers.heatbath import (
     HeatBathState, OverrelaxedHeatBathSampler,
 )
+from mlmcpathintegral_tpu_torch.samplers.hmc import HMCSampler, HMCState
 from mlmcpathintegral_tpu_torch.samplers.schwingercluster import (
     QuenchedSchwingerClusterSampler, SchwingerClusterState,
 )

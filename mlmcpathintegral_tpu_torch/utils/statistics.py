@@ -276,3 +276,12 @@ class Statistics:
             return float("inf")
         return float(math.sqrt(self.tau_int(state)
                                * max(self.variance(state), 0.0) / n))
+
+    def summary(self, state) -> str:
+        return (f" {self.label}: Avg +/- Err = {self.average(state):.6f}"
+                f" +/- {self.error(state):.6f}\n"
+                f" {self.label}: Var +/- Err = {self.variance(state):.6f}"
+                f" +/- {self.variance_error(state):.6f}\n"
+                f" {self.label}: tau_{{int}}   = {self.tau_int(state):.3f}\n"
+                f" {self.label}: window      = {self.k_max}\n"
+                f" {self.label}: # samples   = {self.samples(state)}")

@@ -261,3 +261,31 @@ def test_kernel_wrappers_use_plain_versions_on_cpu():
         [(0, 0)] * len(ops.counters())
     with pytest.raises(ValueError, match="unsupported device"):
         schwinger_sweep(th.to("meta"), 1, beta=1.0, Mt=4, Mx=4)
+
+
+def test_level_whose_fused_block_does_not_fit_runs_unfused(monkeypatch):
+    """With the device's shared-memory limit between the coarsest level's
+    sweep block and the fine level's two-level block, the fine level runs
+    unfused with the factory's coarse sampler, the coarsest stays fused,
+    and evaluate completes; without a limit (the CPU) both are fused."""
+    from mlmcpathintegral_tpu_torch.ops.schwinger import sweep_smem_bytes
+    from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import (
+        twolevel_smem_bytes,
+    )
+    limit = twolevel_smem_bytes(8, 8)[2] - 4
+    assert sweep_smem_bytes(4, 4)[2] <= limit
+    mc = _port_mc(beta=4.0, n_burnin=16, n_samples=256, chunk_size=8)
+    assert mc._unfused == {} and mc._is_fused(0) and mc._is_fused(1)
+    monkeypatch.setattr(MonteCarloMultiLevel, "_smem_limit_of",
+                        staticmethod(lambda device: limit))
+    ops.reset_counters()
+    stats = mc.evaluate(torch.Generator().manual_seed(1), n_chains=16,
+                        dtype=torch.float64, device="cpu")
+    assert sorted(mc._unfused) == [0]
+    assert not mc._is_fused(0) and mc._is_fused(1)
+    assert type(mc.coarse_samplers[0]) is OverrelaxedHeatBathSampler
+    assert not mc.coarse_samplers[0].use_pallas
+    assert np.isfinite(mc.numerical_result(stats))
+    assert all(mc.stats_qoi[ell].samples(stats[ell]) >= 256
+               for ell in range(2))
+    assert mc.tau_slow[0] is None and mc.tau_slow[1] is not None

@@ -62,7 +62,7 @@ def test_check_smem_refuses_fields_beyond_one_block(monkeypatch, size_of,
     if fits:
         _cuda.check_smem(nbytes, dev, "field")
     else:
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(NotImplementedError, match="runs such levels unfused"):
             _cuda.check_smem(nbytes, dev, "field")
 
 
