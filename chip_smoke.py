@@ -87,11 +87,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
                per-trajectory clock traces (see ``departures``), and the
                final fields and cached actions (>= SHARE_MIN within TOL).
                It runs after phase 13, whose t_sub it takes.
+ 14. gff_sweep - the GFF sweep kernel (csrc/gff_sweep.cu) against its
+               plain version: overrelax-only within 1e-6, and after 64
+               heat-bath draws (1 overrelax + 1 heat bath each) every chain
+               within TOL at path E's launch (4096 chains, 16x16) and at
+               128x128 and 256x256 (64 chains; the latter the global-memory
+               branch); the neighbour-sum kernel (P1) identical to its
+               plain version at the JAX probe's shapes (256 chains; 8x8,
+               16x16, 16x8, 8x16); rng_fill's step-less streams (P2: seed
+               42, 64 sites x 512 chains, words 1-3) with bits and
+               uniforms identical; and the Schwinger sweep kernel on a
+               256x256 lattice (64 chains, its global-memory branch):
+               overrelax-only within 1e-5, one heat-bath draw with all but
+               1e-4 of the links within TOL (a rounding flip of one of a
+               chain's 131 072 links moves the chain);
+ 15. gff_singlelevel - path E: the reference's GFF parameter file
+               (16x16, mass 10) driven single-level through the port's QFT
+               driver with the heat bath on the GFF sweep kernel
+               (``perf_probe.gff_heatbath``: 4096 chains, f32, 512
+               sampling draws) on the card: within 4 sigma of
+               phi_squared_analytical, 100 + 4 x 256 + 512 = 1636 sweep
+               launches and no plain-version call on CUDA; then the same
+               run under the profiler for the sampling phase's idle share
+               and device ms per draw.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; each kernel of a path must have launched in it.  The
 kernels line gives, per kernel, its launches on its path (K3 and K4 on
-phase 5's, K7 on path A, K8 on path B2, K5 on path D, K6 on path C), the
+phase 5's, K7 on path A, K8 on path B2, K5 on path D, K6 on path C, K9
+on path E; the two probe kernels, P1 and rng_fill's step-less mode P2,
+are on no path and launch 0 times there), the
 measured ms of a launch at
 its path's shape beside the plain version's and the bound (the least time
 the card could take for the launch's work, ``perf_probe.bound_ms``; the
@@ -366,6 +391,24 @@ def work_k6(C, Mc, nt, n_steps, t_sub, with_traces):
     n_traj = n_steps * t_sub if with_traces else 1
     nbytes = 4 * (2 * C * (3 * Mc + 2) + 3 * n_steps * C + 2 * n_traj * C)
     return nbytes, C * n_steps * (t_sub * per_traj + per_fill)
+
+
+def work_k9(C, Mx, Mt, n_overrelax=1, n_heatbath=1):
+    """(bytes, operations) of a GFF sweep launch: the field read and
+    written once; every site updated once a sweep: its neighbour sum (3
+    adds) and index (4), then a reflection (3) or a heat-bath draw (a
+    step-less stream's set-up, two words, a Box-Muller normal of 6 and
+    the update's 3)."""
+    n = C * Mx * Mt
+    per_site = (n_overrelax * (7 + 3)
+                + n_heatbath * (7 + OPS_RNG_INIT + 2 * OPS_WORD + 6 + 3))
+    return 4 * 2 * n, n * per_site
+
+
+def work_p1(C, Mx, Mt):
+    """(bytes, operations) of a neighbour-sum launch: 3 adds and the
+    index (4) per site."""
+    return 4 * 2 * C * Mx * Mt, 7 * C * Mx * Mt
 
 
 def bound_ms_row(nbytes, nops):
@@ -958,10 +1001,173 @@ def main() -> int:
                   bound_ms_burn_in_launch=r11["burn_in"]["bound"][
                       "bound_ms"])
 
+    # ---- 14. K9, P1, P2: the GFF sweep, the neighbour sum, step-less RNG
+    from mlmcpathintegral_tpu_torch.ops import gff
+    from mlmcpathintegral_tpu_torch.perf_probe import (
+        PATH_E_CHAINS, gff_heatbath,
+    )
+    gen = torch.Generator(device=dev).manual_seed(6)
+    E_M, kappa_E = 16, 4.0 + (10.0 / 16) ** 2     # path E: mass 10, a = 1/16
+    r14, k9_ok = {}, True
+
+    def device_ms(launch, name_sub):
+        """A short launch's time: the profiler's device time per launch
+        (CUDA events around back-to-back launches would time the host,
+        given beside it)"""
+        host = cuda_ms(launch, 50)
+        ms, _ = kernel_device_ms(launch, 50, name_sub)
+        return {"ms": host if ms is None else ms,
+                "ms_from": "CUDA events" if ms is None else "profiler",
+                "host_ms_per_launch": host}
+
+    phiE = torch.randn(PATH_E_CHAINS, E_M * E_M, generator=gen, device=dev)
+    okw = dict(kappa=kappa_E, Mt=E_M, Mx=E_M, n_overrelax=1, n_heatbath=0)
+    k = gff.gff_sweep(phiE, (7, 9), **okw)
+    p = gff.gff_sweep_plain(phiE, (7, 9), **okw)
+    r14["overrelax_max_abs_err"] = float((k - p).abs().max())
+    k9_ok &= r14["overrelax_max_abs_err"] <= 1e-6
+    # 64 heat-bath draws from the same start, one seed pair a draw: the
+    # chain is linear with no accept test, so no chain may depart
+    for name, M, C in (("path_E", E_M, PATH_E_CHAINS), ("128x128", 128, 64),
+                       ("256x256", 256, 64)):
+        x = phiE if M == E_M else torch.randn(C, M * M, generator=gen,
+                                              device=dev)
+        hkw = dict(kappa=4.0 + (10.0 / M) ** 2, Mt=M, Mx=M, n_overrelax=1,
+                   n_heatbath=1)
+        xk, xp = x, x
+        for s in range(64):
+            xk = gff.gff_sweep(xk, (s, -s - 1), **hkw)
+        torch.cuda.synchronize()
+        t_plain = time.monotonic()
+        for s in range(64):
+            xp = gff.gff_sweep_plain(xp, (s, -s - 1), **hkw)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t_plain) * 1e3 / 64
+        d = rel_diff(xk, xp).amax(dim=1)
+        rep = {"chains": C, "draws": 64,
+               "share_within_1e-4": float((d <= TOL).double().mean()),
+               "max_rel_err": float(d.max()),
+               "max_abs_err": float((xk - xp).abs().max()),
+               "in_global_memory": gff.sweep_launch(
+                   M, M, C, _cuda.max_smem_optin(0))[3],
+               **device_ms(lambda: gff.gff_sweep(x, (1, 2), **hkw),
+                           "gff_sweep"),
+               "plain_ms": plain_ms,
+               "bound": bound_ms_row(*work_k9(C, M, M))}
+        k9_ok &= rep["share_within_1e-4"] == 1.0
+        r14[name] = rep
+    # P1 at the JAX probe's shapes
+    p1_eq = True
+    for Mt, Mx in ((8, 8), (16, 16), (16, 8), (8, 16)):
+        x = torch.randn(256, Mx * Mt, generator=gen, device=dev)
+        p1_eq &= torch.equal(gff.gff_nbsum(x, Mt, Mx),
+                             gff.gff_nbsum_plain(x, Mt, Mx))
+    x = torch.randn(256, 256, generator=gen, device=dev)
+    r14["nbsum"] = {"identical": bool(p1_eq), "shape": "256 chains, 16x16",
+                    **device_ms(lambda: gff.gff_nbsum(x, 16, 16),
+                                "gff_nbsum"),
+                    "plain_ms": cuda_ms(lambda: gff.gff_nbsum_plain(
+                        x, 16, 16), 5),
+                    "bound": bound_ms_row(*work_p1(256, 16, 16))}
+    # P2: the probe's step-less streams, seed 42, words 1-3
+    p2 = dict(n_sites=64, n_chains=512, n_steps=1, n_ctr=3, step0=None)
+    b, u, n = rng.rng_fill(42, device=dev, **p2)
+    bp, up, np_ = rng.rng_fill_plain(42, device=dev, **p2)
+    torch.cuda.synchronize()
+    r14["rng_stepless"] = {
+        "bits_identical": bool(torch.equal(b, bp)),
+        "uniforms_identical": bool(torch.equal(u, up)),
+        "normal_max_abs_err": float((n - np_).abs().max()),
+        "grid": {k: v for k, v in p2.items()},
+        **device_ms(lambda: rng.rng_fill(42, device=dev, **p2),
+                    "rng_fill"),
+        "plain_ms": cuda_ms(lambda: rng.rng_fill_plain(42, device=dev,
+                                                       **p2), 5),
+        "bound": bound_ms_row(*work_rng(64, 512, 1, 3))}
+    p2_ok = (r14["rng_stepless"]["bits_identical"]
+             and r14["rng_stepless"]["uniforms_identical"]
+             and r14["rng_stepless"]["normal_max_abs_err"] <= 1e-6)
+    # K3 beyond shared memory: a 256x256 link field, 64 chains
+    th = links(64, 2 * 256 * 256)
+    kw3 = dict(beta=4.0, Mt=256, Mx=256, n_steps=1, with_energy=True)
+    k = schwinger.schwinger_sweep_chain(th, (7, 9), n_heatbath=0, **kw3)
+    p = schwinger.schwinger_sweep_chain_plain(th, (7, 9), n_heatbath=0,
+                                              **kw3)
+    k3_or = float((k[0] - p[0]).abs().max())
+    k = schwinger.schwinger_sweep_chain(th, (3, 4), **kw3)
+    p = schwinger.schwinger_sweep_chain_plain(th, (3, 4), **kw3)
+    # 131 072 links a chain: a float rounding that flips one ExpCos test
+    # (a few in 10^7 links, as at the smaller launches) moves a whole
+    # chain, so the share is taken over links
+    dl = torch.remainder(k[0].double() - p[0].double() + math.pi,
+                         2 * math.pi) - math.pi
+    r14["schwinger_256x256"] = {
+        "in_global_memory": schwinger.sweep_launch(
+            256, 256, 64, _cuda.max_smem_optin(0))[3],
+        "overrelax_max_abs_err": k3_or,
+        "heatbath_link_share_within_1e-4": float(
+            (dl.abs() <= TOL).double().mean()),
+        "heatbath_links_off": int((dl.abs() > TOL).sum()),
+        "heatbath_chain_share_within_1e-4": angle_share(k[0], p[0], TOL),
+        "ms": cuda_ms(lambda: schwinger.schwinger_sweep_chain(
+            th, (3, 4), **kw3), 5)}
+    k3_big_ok = (k3_or <= 1e-5 and r14["schwinger_256x256"][
+        "heatbath_link_share_within_1e-4"] >= 1.0 - 1e-4)
+    emit({"phase": "gff_sweep", **r14})
+    if not k9_ok:
+        fail("GFF sweep kernel disagrees with its plain version")
+    if not p1_eq:
+        fail("neighbour-sum kernel disagrees with its plain version")
+    if not p2_ok:
+        fail("step-less RNG streams disagree with their plain version")
+    if not k3_big_ok:
+        fail("sweep kernel on a 256x256 field disagrees with its plain "
+             "version")
+    rE = r14["path_E"]
+    k9_row = dict(max_abs_err=max(r14[n]["max_abs_err"] for n in
+                                  ("path_E", "128x128", "256x256")),
+                  ms=rE["ms"], ms_from=rE["ms_from"],
+                  host_ms_per_launch=rE["host_ms_per_launch"],
+                  plain_ms=rE["plain_ms"], **rE["bound"],
+                  launch=dict(chains=PATH_E_CHAINS, Mt=E_M, Mx=E_M,
+                              n_overrelax=1, n_heatbath=1),
+                  ms_256x256=r14["256x256"]["ms"],
+                  bound_ms_256x256=r14["256x256"]["bound"]["bound_ms"])
+    r1 = r14["nbsum"]
+    p1_row = dict(max_abs_err=0.0, ms=r1["ms"], ms_from=r1["ms_from"],
+                  plain_ms=r1["plain_ms"], **r1["bound"], launch=r1["shape"])
+    r2 = r14["rng_stepless"]
+    p2_row = dict(max_abs_err=r2["normal_max_abs_err"], ms=r2["ms"],
+                  ms_from=r2["ms_from"], plain_ms=r2["plain_ms"],
+                  **r2["bound"],
+                  launch=r2["grid"])
+
+    # ---- 15. path E: the GFF heat bath through the QFT driver ------------
+    ops.reset_counters()
+    rep_e = gff_heatbath(device=dev)
+    rep_e["launches"] = {c.name: c.launches for c in ops.counters()}
+    rep_e["plain_calls_on_cuda"] = {c.name: c.plain_cuda_calls
+                                    for c in ops.counters()}
+    prof_e = gff_heatbath(device=dev, profile=True)
+    rep_e["profiled"] = {k: prof_e[k] for k in (
+        "phase_device_busy_ms", "phase_idle_share", "device_ms_per_draw",
+        "phase_device_events", "gff_sweep_ms_per_launch",
+        "host_ms_per_draw", "eff_samples_per_sec", "numerical")}
+    emit({"phase": "gff_singlelevel", **rep_e})
+    want_k9 = 100 + 4 * 256 + 512
+    if not math.isfinite(rep_e["numerical"]) or rep_e["sigma_dev"] > 4.0:
+        fail(f"path E {rep_e['sigma_dev']:.2f} sigma from "
+             f"phi_squared_analytical")
+    if rep_e["launches"][gff.SWEEP.name] != want_k9 \
+            or any(rep_e["plain_calls_on_cuda"].values()):
+        fail(f"path E made {rep_e['launches'][gff.SWEEP.name]} GFF sweep "
+             f"launches (want {want_k9}) or ran a plain version on CUDA")
+
     # ---- the kernel table and the result line ---------------------------
     # every kernel with its launches on its own path: K3 and K4 on the
     # heat-bath main path (phase 5), K7 on path A (phase 9), K8 on path B2
-    # (phase 8), K5 on path D (phase 12), K6 on path C (phase 13); the
+    # (phase 8), K5 on path D (phase 12), K6 on path C (phase 13), K9 on
+    # path E (phase 15), the probe kernels P1 and P2 on path E too (0); the
     # counter RNG (K1) is a device function inside all of
     # them, checked through its own rng_fill launcher, which no path
     # launches
@@ -974,10 +1180,17 @@ def main() -> int:
              rep_b2["launches"][rotor.SWEEP.name]),
             (hmc.HMC, k5_row, rep_d["launches"][hmc.HMC.name]),
             (qtl.QM_TWOLEVEL, k6_row,
-             rep_c["launches"][qtl.QM_TWOLEVEL.name])):
+             rep_c["launches"][qtl.QM_TWOLEVEL.name]),
+            (gff.SWEEP, k9_row, rep_e["launches"][gff.SWEEP.name]),
+            (gff.NBSUM, p1_row, rep_e["launches"][gff.NBSUM.name])):
         rows.append({"name": counter.name, "route": "cuda",
                      "source": counter.source, "replaces": counter.replaces,
                      "launches": n, **row})
+    # P2: rng_fill's step-less mode, launched by no path
+    rows.append({"name": "rng_fill (step-less)", "route": "cuda",
+                 "source": "mlmcpathintegral_tpu_torch/csrc/rng_fill.cu",
+                 "replaces": "tools/perf_probe.py:349",
+                 "launches": rep_e["launches"][ops.RNG_FILL.name], **p2_row})
     rows[0]["also_replaces"] = "mlmcpathintegral_tpu/ops/" \
         "pallas_schwinger.py:233"   # schwinger_sweep: the same kernel
     rows[3]["also_replaces"] = "mlmcpathintegral_tpu/ops/" \
@@ -988,7 +1201,7 @@ def main() -> int:
         "name": "CounterRng", "route": "cuda", "source": ops.RNG_FILL.source,
         "replaces": ops.RNG_FILL.replaces,
         "runs_inside": [r["name"] for r in rows
-                        if r["name"] != hmc.HMC.name],
+                        if r["name"] not in (hmc.HMC.name, gff.NBSUM.name)],
         "checked_through": ops.RNG_FILL.name,
         "rng_fill_launches": launches[ops.RNG_FILL.name], **rng_row}]
     print(card_line, flush=True)

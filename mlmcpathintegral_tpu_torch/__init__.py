@@ -13,10 +13,13 @@ run on the card unless the caller passes ``device="cpu"``.
 Ported so far: the two-level MLMC of the quenched Schwinger model with
 both-direction coarsening, with heat-bath coarse chains (the fused path)
 or hybrid cluster coarse chains (the unfused path); the topological rotor
-with its heat-bath and Wolff cluster samplers; and the QM family: the
+with its heat-bath and Wolff cluster samplers; the QM family: the
 harmonic and quartic oscillators, HMC on the fused trajectory kernel, the
 exact harmonic sampler, the QM conditioned fills and the two-level method
-``MonteCarloTwoLevel`` with its fused QM chain kernel.
+``MonteCarloTwoLevel`` with its fused QM chain kernel; and the Gaussian
+free field with its fused sweep kernel, the single-level method
+``MonteCarloSingleLevel``, the config reader and the QFT driver
+(``python -m mlmcpathintegral_tpu_torch.drivers.qft``).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """State conversion between the JAX package and the PyTorch port.
 
 The two packages hold the same state in the same layouts — link fields
-[C, 2*Mx*Mt] in the reference's linear order, rotor paths [C, M],
+[C, 2*Mx*Mt] in the reference's linear order, GFF fields [C, N] (vertex
+l = Mt*j + i, or the rotated lattice's order), rotor paths [C, M],
 ``TwoLevelState``, ``StatsState``, the sampler states (``HeatBathState``,
 ``ClusterState``, ``SchwingerClusterState(x, psi)``, ``HMCState(x, dt)``,
 ``ExactState``), the per-level chunk carries (nested tuples of those and of

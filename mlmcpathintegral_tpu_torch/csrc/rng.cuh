@@ -6,6 +6,7 @@
 // The bits equal the JAX ones for every (seed, seed2, site, chain, step,
 // ctr):
 //   base_s = fmix32(fmix32(site*0x9E3779B9 ^ seed) + step*0x165667B1)
+//            (step-less streams: fmix32(site*0x9E3779B9 ^ seed))
 //   base_c = fmix32(chain*0x85EBCA77 ^ seed2)
 //   bits   = fmix32(fmix32(base_s + ctr*0xC2B2AE3D)
 //                   + fmix32(base_c + ctr*0x27D4EB2F))
@@ -50,6 +51,15 @@ struct CounterRng {
                                         uint32_t step) {
     const uint32_t s0 = fmix32((site * 0x9E3779B9u) ^ seed1);
     base_s = fmix32(s0 + step * 0x165667B1u);
+    base_c = fmix32((chain * 0x85EBCA77u) ^ seed2);
+  }
+
+  // step-less stream (the JAX class with step=None): base_s is the site
+  // lane's first hash alone, base_s = fmix32(site*0x9E3779B9 ^ seed1).
+  // The GFF sweep (gff_sweep.cu) is the one kernel that draws from it.
+  __device__ __forceinline__ CounterRng(uint32_t seed1, uint32_t seed2,
+                                        uint32_t site, uint32_t chain) {
+    base_s = fmix32((site * 0x9E3779B9u) ^ seed1);
     base_c = fmix32((chain * 0x85EBCA77u) ^ seed2);
   }
 

@@ -18,6 +18,15 @@
 // keeps it in VMEM) and packs several chains into a block so that small
 // lattices still give each block a few warps.  Q and E are per-chain
 // shared-memory tree sums.
+//
+// A field beyond the shared memory one block may opt in to (227 KB on
+// the H100: a 256x128 lattice's links are 256 KB a chain) takes the second
+// branch: the chain's two planes live in its slice of a global scratch
+// buffer the wrapper allocates (work != nullptr), one chain per block,
+// updated in place with the same __syncthreads() between link groups;
+// only the reduction scratch stays in shared memory.  The sweeps are the
+// same device functions on the same planes, so both branches compute the
+// same bits.
 
 #include <cuda_runtime.h>
 
@@ -36,16 +45,18 @@ __global__ void schwinger_sweep_kernel(const float* __restrict__ theta_in,
                                        float* __restrict__ theta_out,
                                        float* __restrict__ qsum,
                                        float* __restrict__ esum,
-                                       SweepArgs a) {
+                                       float* work, SweepArgs a) {
   extern __shared__ float smem[];
   const int nsites = a.Mx * a.Mt;
   const int lc = threadIdx.x / a.tpc;
   const int lt = threadIdx.x - lc * a.tpc;
   const int chain = blockIdx.x * a.cpb + lc;
   const bool valid = chain < a.C;
-  float* T = smem + (size_t)lc * 2 * nsites;
+  // the planes in shared memory, or in global memory (one chain a block)
+  float* T = work != nullptr ? work + (size_t)chain * 2 * nsites
+                             : smem + (size_t)lc * 2 * nsites;
   float* X = T + nsites;
-  float* red = smem + (size_t)a.cpb * 2 * nsites;
+  float* red = work != nullptr ? smem : smem + (size_t)a.cpb * 2 * nsites;
 
   const float* src = theta_in + (size_t)chain * 2 * nsites;
   for (int s = lt; s < nsites; s += a.tpc) {
@@ -86,10 +97,13 @@ extern "C" int mlmc_max_smem_optin(int device, int* out) {
 }
 
 // theta_in/theta_out: [C, 2*Mx*Mt] f32 (may not alias); qsum/esum:
-// [n_steps, C] f32 or null.  tpc threads per chain (a power of two),
-// cpb chains per block, smem bytes of dynamic shared memory.
+// [n_steps, C] f32 or null; work: null, or [C, 2*Mx*Mt] f32 scratch for
+// the global-memory branch (then cpb = 1).  tpc threads per chain (a
+// power of two), cpb chains per block, smem bytes of dynamic shared
+// memory.
 extern "C" int mlmc_schwinger_sweep(const float* theta_in, float* theta_out,
-                                    float* qsum, float* esum, int C, int Mx,
+                                    float* qsum, float* esum, float* work,
+                                    int C, int Mx,
                                     int Mt, int n_steps, int step_offset,
                                     int n_overrelax, int n_heatbath,
                                     int k_rej, float beta, uint32_t seed1,
@@ -106,6 +120,6 @@ extern "C" int mlmc_schwinger_sweep(const float* theta_in, float* theta_out,
   const int blocks = (C + cpb - 1) / cpb;
   mlmc::schwinger_sweep_kernel<<<blocks, tpc * cpb, smem,
                                  (cudaStream_t)stream>>>(
-      theta_in, theta_out, qsum, esum, a);
+      theta_in, theta_out, qsum, esum, work, a);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,7 @@ from mlmcpathintegral_tpu_torch.models.base import (
 from mlmcpathintegral_tpu_torch.models.harmonic import (
     HarmonicOscillatorAction,
 )
+from mlmcpathintegral_tpu_torch.models.qft.gff import GFFAction
 from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
     QuenchedSchwingerAction,
 )

@@ -1,3 +1,4 @@
+from mlmcpathintegral_tpu_torch.models.qft.gff import GFFAction
 from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
     QuenchedSchwingerAction, chit_analytical,
 )

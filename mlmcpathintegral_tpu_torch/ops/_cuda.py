@@ -46,11 +46,13 @@ c_size = ctypes.c_size_t
 _SIGNATURES = {
     "mlmc_max_smem_optin": [c_int, ctypes.POINTER(c_int)],
     "mlmc_rng_fill": [c_ptr, c_ptr, c_ptr, c_u32, c_u32, c_int, c_int,
-                      c_int, c_int, c_int, c_ptr],
-    "mlmc_schwinger_sweep": [c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int,
-                             c_int, c_int, c_int, c_int, c_int, c_int,
-                             c_float, c_u32, c_u32, c_int, c_int, c_size,
-                             c_ptr],
+                      c_int, c_int, c_int, c_int, c_ptr],
+    "mlmc_schwinger_sweep": [c_ptr] * 5 + [c_int] * 8
+    + [c_float, c_u32, c_u32, c_int, c_int, c_size, c_ptr],
+    "mlmc_gff_sweep": [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
+                       c_float, c_float, c_u32, c_u32, c_int, c_int, c_int,
+                       c_size, c_ptr],
+    "mlmc_gff_nbsum": [c_ptr, c_ptr, c_int, c_int, c_int, c_ptr],
     "mlmc_schwinger_twolevel": [c_ptr] * 13 + [c_int] * 13 + [c_float] * 5
     + [c_u32, c_u32, c_int, c_int, c_size, c_ptr],
     "mlmc_rotor_sweep": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
@@ -181,9 +183,12 @@ def max_smem_optin(device_index: int) -> int:
 
 def check_smem(nbytes: int, device: torch.device, what: str) -> None:
     """Refuse a launch whose block needs more dynamic shared memory than
-    the device lets one block opt in to.  The kernels keep a chain's whole
-    field in one block; ``MonteCarloMultiLevel`` runs a level whose field
-    does not fit unfused by itself, and this guard stops a direct call."""
+    the device lets one block opt in to.  The fused two-level, rotor and
+    HMC kernels keep a chain's whole field in one block;
+    ``MonteCarloMultiLevel`` runs a level whose field does not fit unfused
+    by itself, and this guard stops a direct call.  (The sweep kernels of
+    the Schwinger model and the GFF move such fields to global memory
+    instead.)"""
     limit = max_smem_optin(device.index or 0)
     if nbytes > limit:
         raise NotImplementedError(

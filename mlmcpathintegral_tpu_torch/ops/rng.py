@@ -177,16 +177,24 @@ RNG_FILL = _cuda.KernelCounter(
     "mlmcpathintegral_tpu/ops/pallas_rng.py:53")
 
 
+def _check_stepless(step0, n_steps) -> None:
+    if step0 is None and n_steps != 1:
+        raise ValueError(f"a step-less stream has one step, got n_steps="
+                         f"{n_steps}")
+
+
 def rng_fill_plain(seed, *, n_sites, n_chains, n_steps, n_ctr, device,
                    step0=0):
     """Plain version of :func:`rng_fill`."""
+    _check_stepless(step0, n_steps)
     seed1, seed2 = seed_pair(seed)
     site, chain = element_ids((n_sites,), n_chains, device)
     if torch.device(device).type == "cuda":
         RNG_FILL.plain_cuda_calls += 1
     bits, uni, nrm = [], [], []
     for st in range(n_steps):
-        rng = CounterRng(seed1, site, chain, seed2, step=step0 + st)
+        rng = CounterRng(seed1, site, chain, seed2,
+                         step=None if step0 is None else step0 + st)
         bits.append(rng.bits(n_ctr))
         rng.ctr = 0
         u = rng.uniform(torch.float32, n_ctr)
@@ -205,9 +213,12 @@ def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
     (bits int64 [n_steps, n_ctr, n_chains, n_sites] holding uint32 values,
     uniforms float32 of the same shape, normals float32
     [n_steps, n_ctr//2, n_chains, n_sites] from the word pairs
-    (2k+1, 2k+2)).  Runs the kernel on the card unless ``device`` is the
-    CPU, where the plain version runs."""
+    (2k+1, 2k+2)).  ``step0=None`` takes the step-less streams (no step
+    index folded into the site lane; ``n_steps`` must be 1), which the GFF
+    sweep kernel draws from.  Runs the kernel on the card unless
+    ``device`` is the CPU, where the plain version runs."""
     device = _cuda.run_device(device)
+    _check_stepless(step0, n_steps)
     if device.type == "cpu":
         return rng_fill_plain(seed, n_sites=n_sites, n_chains=n_chains,
                               n_steps=n_steps, n_ctr=n_ctr, step0=step0,
@@ -221,7 +232,8 @@ def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
                       dtype=torch.float32, device=device)
     err = _cuda.load_library().mlmc_rng_fill(
         bits.data_ptr(), uni.data_ptr(), nrm.data_ptr(), seed1, seed2,
-        n_sites, n_chains, step0, n_steps, n_ctr, _cuda.stream_ptr(device))
+        n_sites, n_chains, step0 or 0, n_steps, n_ctr, int(step0 is None),
+        _cuda.stream_ptr(device))
     _cuda.check_status(err, "rng_fill kernel launch")
     RNG_FILL.launches += 1
     return bits.to(torch.int64) & M32, uni, nrm

@@ -182,7 +182,7 @@ def schwinger_sweep_chain_plain(theta, seed, *, beta, Mt, Mx, n_steps,
 
 def sweep_smem_bytes(Mt: int, Mx: int, n_chains: int | None = None):
     """(threads per chain, chains per block, dynamic shared bytes) of the
-    sweep kernel's launch."""
+    sweep kernel's launch with the fields in shared memory."""
     nsites = Mx * Mt
     tpc, cpb = _cuda.block_layout(nsites)
     if n_chains is not None:
@@ -190,15 +190,28 @@ def sweep_smem_bytes(Mt: int, Mx: int, n_chains: int | None = None):
     return tpc, cpb, 4 * (cpb * 2 * nsites + 2 * tpc * cpb)
 
 
+def sweep_launch(Mt: int, Mx: int, n_chains: int, smem_limit: int):
+    """(threads per chain, chains per block, dynamic shared bytes, fields
+    in global memory) of the sweep kernel's launch on a device that lets a
+    block opt in to ``smem_limit`` bytes: the fields in shared memory when
+    they fit, else in a global scratch buffer, one chain per block, with
+    only the Q/E reduction scratch in shared memory."""
+    tpc, cpb, smem = sweep_smem_bytes(Mt, Mx, n_chains)
+    if smem <= smem_limit:
+        return tpc, cpb, smem, False
+    return tpc, 1, 4 * 2 * tpc, True
+
+
 def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
                 n_heatbath, k_rej, with_energy, step_offset, want_q):
     C = theta.shape[0]
     _cuda.require_cuda("theta", theta, (C, 2 * Mx * Mt))
     check_element_capacity(Mx * Mt, C)
-    tpc, cpb, smem = sweep_smem_bytes(Mt, Mx, C)
-    _cuda.check_smem(smem, theta.device, f"the {Mx}x{Mt} link field")
+    tpc, cpb, smem, in_global = sweep_launch(
+        Mt, Mx, C, _cuda.max_smem_optin(theta.device.index or 0))
     seed1, seed2 = seed_pair(seed)
     out = torch.empty_like(theta)
+    work = torch.empty_like(theta) if in_global else None
     qsum = (torch.empty((n_steps, C), dtype=theta.dtype, device=theta.device)
             if want_q else None)
     esum = (torch.empty((n_steps, C), dtype=theta.dtype, device=theta.device)
@@ -208,6 +221,7 @@ def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
         theta.data_ptr(), out.data_ptr(),
         qsum.data_ptr() if qsum is not None else None,
         esum.data_ptr() if esum is not None else None,
+        work.data_ptr() if work is not None else None,
         C, Mx, Mt, n_steps, step_offset, n_overrelax, n_heatbath, k_rej,
         float(beta), seed1, seed2, tpc, cpb, smem,
         _cuda.stream_ptr(theta.device))

@@ -2,6 +2,7 @@
 
     python -m mlmcpathintegral_tpu_torch.perf_probe [--out FILE]
         [--chunks 5] [--reps 3] [--trace FILE] [--cluster-chunks 1]
+        [--qm-only] [--gff-only]
 
 It builds the ``bench_schwinger_mlmc`` configuration (8x8, both-direction
 coarsening, beta=4 nonperturbative, heat-bath coarse chains, 1024 chains,
@@ -40,6 +41,14 @@ f32, chunk 256), prepares its carries as ``evaluate`` does, and measures:
             included, and the sampling phase alone: its four two-level
             launches against ``sampling_s``) and each kernel's device ms
             and launches.  ``--qm-only`` runs this probe alone.
+  gff     - path E (``gff_heatbath``: the reference's GFF parameter file
+            driven single-level through the port's QFT driver on the GFF
+            sweep kernel) once under the profiler (device activity only):
+            the driver's result, effective samples/s, host ms per draw,
+            and over the sampling phase (its draws' device intervals
+            against ``sampling_s``) the device-busy ms, idle share and
+            device ms per draw, with the sweep kernel's device ms and
+            launches.  ``--gff-only`` runs this probe alone.
 
 With ``--accuracy-seeds`` it also runs :func:`cluster_accuracy` (path A
 and its configuration with unfused heat-bath coarse chains at those seeds,
@@ -369,6 +378,102 @@ def qm_probe():
         "k5_launches": ops.HMC.launches,
         "k6_launches": ops.QM_TWOLEVEL.launches}
     return res
+
+
+# -- path E: the GFF heat bath through the QFT driver ------------------------
+
+PATH_E_CONFIG = REPO / "baselines" / "configs" / "ref_qft_gff_twolevel.in"
+PATH_E_CHAINS, PATH_E_DRAWS = 4096, 512
+
+
+def gff_path_e_config():
+    """Path E's configuration: the reference's GFF parameter file
+    (``baselines/configs/ref_qft_gff_twolevel.in``: 16x16, mass 10,
+    coarsening 'rotate', heat bath 1 overrelax + 1 heat-bath sweep with
+    100 burn-in draws, single-level burn-in 1000, statistics window 100)
+    driven with ``method = 'singlelevel'``, ``heatbath: use_pallas =
+    true`` and 4096 f32 chains (the chain count of the JAX package's GFF
+    kernel probe).  One cut: ``n_samples`` = 4096 x 512 in place of the
+    file's 10 000 (at 4096 chains that would be 3 draws a chain, too few
+    to time)."""
+    from mlmcpathintegral_tpu_torch.utils.config import read_parameter_file
+    cfg = read_parameter_file(PATH_E_CONFIG)
+    cfg["general"]["method"] = "singlelevel"
+    cfg["heatbath"]["use_pallas"] = True
+    cfg["parallel"] = {"n_chains": PATH_E_CHAINS, "dtype": "float32"}
+    cfg["singlelevelmc"]["n_samples"] = PATH_E_CHAINS * PATH_E_DRAWS
+    return cfg
+
+
+def gff_heatbath(seed=0, device="cuda", profile=False):
+    """Path E through ``drivers.qft.run`` (its report captured, not
+    printed).  Returns the driver's result with eff_samples_per_sec = n /
+    (tau_int(phi^2) sampling_s) (the scope of the JAX package's GFF kernel
+    probe) and host_ms_per_draw = sampling_s / sampling draws; with
+    ``profile`` the run is traced (device activity) and the sampling
+    phase's device-busy ms, idle share and device ms per draw are added
+    (``_phase_summary``)."""
+    import contextlib
+    import io
+    import warnings
+
+    from mlmcpathintegral_tpu_torch.drivers.qft import run
+    cfg = gff_path_e_config()
+    out = io.StringIO()
+    prof = None
+    with contextlib.redirect_stdout(out), warnings.catch_warnings():
+        # the file's heatbath.random_order, which a coloured sweep ignores
+        warnings.simplefilter("ignore", UserWarning)
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as tprofile
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = run(cfg, device=device, seed=seed)
+        else:
+            res = run(cfg, device=device, seed=seed)
+    sampling_s = res["timings"]["sampling_s"]
+    res.update(eff_samples_per_sec=res["samples"] / (res["tau_int"]
+                                                     * sampling_s),
+               host_ms_per_draw=sampling_s * 1e3 / res["sampling_draws"],
+               report_tail=out.getvalue().splitlines()[-3:])
+    if profile:
+        res.update(_phase_summary(prof, "gff_sweep", res["sampling_draws"],
+                                  sampling_s))
+    return res
+
+
+def _phase_summary(prof, name_sub, n_last, phase_s):
+    """Device activity of a phase that starts with the last ``n_last``
+    launches of the kernel named ``name_sub``: the union of every device
+    interval from the first of them on (busy ms), the idle share it
+    leaves in ``phase_s`` host seconds, device ms per launch of the
+    phase, and the kernel's own device ms and launches in it."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        ivals = sorted(device_intervals(path), key=lambda iv: iv[1])
+    mine = [(s, e) for name, s, e in ivals if name_sub in name]
+    t0 = mine[-n_last][0]
+    phase = [(s, e) for _, s, e in ivals if s >= t0]
+    busy = union_ms(phase)
+    k_ms = sum(e - s for s, e in mine[-n_last:]) / 1e3
+    return {"phase_device_busy_ms": busy,
+            "phase_idle_share": 1.0 - busy / (phase_s * 1e3),
+            "device_ms_per_draw": busy / n_last,
+            "phase_device_events": len(phase),
+            f"{name_sub}_device_ms": k_ms, f"{name_sub}_launches": n_last,
+            f"{name_sub}_ms_per_launch": k_ms / n_last,
+            "run_device_events": len(ivals)}
+
+
+def gff_probe():
+    """Path E once under the profiler (module docstring)."""
+    from mlmcpathintegral_tpu_torch import ops
+    ops.reset_counters()
+    row = gff_heatbath(profile=True)
+    return {"path_E": {**row, "k9_launches": ops.GFF_SWEEP.launches,
+                       "k9_plain_cuda_calls": ops.GFF_SWEEP.plain_cuda_calls}}
 
 
 def union_ms(intervals) -> float:
@@ -720,6 +825,8 @@ def main(argv=None) -> int:
                     help="run cluster_accuracy alone, no device probes")
     ap.add_argument("--qm-only", action="store_true",
                     help="run the QM paths' probe (qm) alone")
+    ap.add_argument("--gff-only", action="store_true",
+                    help="run path E's probe (gff) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe: no CUDA device")
@@ -730,13 +837,15 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.accuracy_only or args.qm_only:
+    if args.accuracy_only or args.qm_only or args.gff_only:
         res = {"card": smi, "torch": torch.__version__}
         if args.accuracy_only:
             res["cluster_accuracy"] = cluster_accuracy(
                 args.accuracy_seeds, args.accuracy_configs)
         if args.qm_only:
             res["qm"] = qm_probe()
+        if args.gff_only:
+            res["gff"] = gff_probe()
         out.write_text(json.dumps(res, indent=1))
         print(json.dumps(res))
         return 0
@@ -757,7 +866,8 @@ def main(argv=None) -> int:
            "cluster": cluster_probe(
                args.cluster_chunks,
                trace.with_name(trace.stem + "_cluster.json")),
-           "qm": qm_probe()}
+           "qm": qm_probe(),
+           "gff": gff_probe()}
     if args.accuracy_seeds:
         res["cluster_accuracy"] = cluster_accuracy(args.accuracy_seeds,
                                                    args.accuracy_configs)

@@ -45,3 +45,18 @@ def qoi_2d_susceptibility(action):
         Q = torch.sum(mod_2pi(plaq), dim=(-2, -1))
         return FOUR_PI2_INV * Q * Q
     return evaluate
+
+
+def qoi_avg_plaquette(action):
+    """(1/(Mt Mx)) sum_P cos(theta_P) (qoiavgplaquette.cc:6-27)."""
+    def evaluate(theta):
+        return torch.mean(torch.cos(action.plaquette_angles(theta)),
+                          dim=(-2, -1))
+    return evaluate
+
+
+def qoi_2d_phi_squared(action_or_lattice):
+    """(1/M) sum phi^2 for scalar 2-D fields (qoi2dphisquared.cc:3-11)."""
+    def evaluate(phi):
+        return torch.mean(phi * phi, dim=-1)
+    return evaluate

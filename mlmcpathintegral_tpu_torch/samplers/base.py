@@ -21,6 +21,11 @@ def kernel_seed(generator: torch.Generator) -> torch.Tensor:
 class Sampler(abc.ABC):
     """Batched sampler over an action."""
 
+    #: True where a draw takes nothing but kernel seeds from its generator:
+    #: a CPU generator then serves the draws of chains on the card, with
+    #: no read from the card per draw
+    host_seeded = False
+
     def __init__(self, action):
         self.action = action
 

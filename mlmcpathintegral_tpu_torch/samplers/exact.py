@@ -1,8 +1,9 @@
 """Exact sampler for actions that draw independent samples (PyTorch port of
 ``mlmcpathintegral_tpu/samplers/exact.py``).
 
-Reference parity: HarmonicOscillatorAction doubles as a Sampler
-(harmonicoscillatoraction.hh:264-276), selected with ``sampler = 'exact'``.
+Reference parity: HarmonicOscillatorAction and GFFAction double as
+Samplers (harmonicoscillatoraction.hh:264-276, gffaction.hh:356-375),
+selected with ``sampler = 'exact'``.
 Here any action with ``exact_draw(generator, n_chains, dtype, device)``
 qualifies.
 """
@@ -52,9 +53,18 @@ class ExactSampler(Sampler):
 
     def draw_batch_with_action(self, generator, state: ExactState, n: int):
         """Like :meth:`draw_batch`, also returning S(x) [n, C] of every
-        draw (the screen then skips its coarse-action evaluation)."""
-        state, xs = self.draw_batch(generator, state, n)
-        return state, xs, self.action.evaluate(xs)
+        draw (the screen then skips its coarse-action evaluation): in
+        closed form from the driving normals where the action has
+        ``exact_draw_with_action`` (the GFF's dense factors), else by
+        ``evaluate``."""
+        with_action = getattr(self.action, "exact_draw_with_action", None)
+        if with_action is None:
+            state, xs = self.draw_batch(generator, state, n)
+            return state, xs, self.action.evaluate(xs)
+        C, N = state.x.shape
+        xs, S = with_action(generator, n * C, state.x.dtype, state.x.device)
+        xs = xs.reshape(n, C, N)
+        return ExactState(x=xs[-1]), xs, S.reshape(n, C)
 
     def prepare(self, generator, n_chains, dtype, device):
         return self.init(generator, n_chains, dtype, device)

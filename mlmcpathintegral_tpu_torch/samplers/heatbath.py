@@ -1,16 +1,18 @@
 """Overrelaxed heat-bath sampler (PyTorch port of
-``mlmcpathintegral_tpu/samplers/heatbath.py``: the quenched Schwinger
-action and the topological rotor).
+``mlmcpathintegral_tpu/samplers/heatbath.py``).
 
 Reference parity: src/sampler/overrelaxedheatbathsampler.{hh,cc} —
 n_sweep_overrelax overrelaxation sweeps followed by n_sweep_heatbath
-heat-bath sweeps.  The Schwinger action supplies coloured whole-lattice
-sweeps (4 conflict-free link groups); the rotor is swept on the 1-D
-even/odd checkerboard through its ``heatbath_site`` / ``overrelax_site``.
-With ``use_pallas`` a draw is one launch of the fused sweep kernel
-(ops/schwinger.py, ops/rotor.py; the name is the JAX package's, whose
-fused kernels were Pallas); otherwise the plain tensor sweeps run with
-noise from the ``torch.Generator``.
+heat-bath sweeps.  Actions with coloured whole-lattice sweeps (the
+quenched Schwinger action's 4 conflict-free link groups, the GFF's
+red/black) supply them; the 1-D QM actions (harmonic, quartic, rotor) are
+swept on the even/odd checkerboard through their ``heatbath_site`` /
+``overrelax_site``.  With ``use_pallas`` (the quenched Schwinger action,
+the plain GFF and the rotor) a draw is one launch of the fused sweep
+kernel (ops/schwinger.py, ops/gff.py, ops/rotor.py; the name is the JAX
+package's, whose fused kernels were Pallas), which takes only a seed pair
+from the generator; otherwise the plain tensor sweeps run with noise from
+the ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -32,32 +34,52 @@ class OverrelaxedHeatBathSampler(Sampler):
     def __init__(self, action, n_sweep_heatbath: int = 1,
                  n_sweep_overrelax: int = 1, n_burnin: int = 100,
                  use_pallas: bool = False):
+        from mlmcpathintegral_tpu_torch.models.qft.gff import GFFAction
         from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
             QuenchedSchwingerAction,
         )
         from mlmcpathintegral_tpu_torch.models.rotor import RotorAction
-        if type(action) is QuenchedSchwingerAction:
-            self._kind = "schwinger"
-        elif type(action) is RotorAction:
-            self._kind = "rotor"
+        #: actions with whole-lattice coloured sweeps are swept by them;
+        #: the others by the 1-D even/odd sweep of their heatbath_site
+        self._action_sweeps = hasattr(action, "heatbath_sweep")
+        if not self._action_sweeps:
+            if not hasattr(action, "heatbath_site"):
+                raise NotImplementedError(
+                    f"{type(action).__name__} has neither coloured sweeps "
+                    f"nor heatbath_site: its heat bath is not ported "
+                    f"(ROADMAP.md, open item 12)")
             if action.lattice.M_lat % 2:
                 raise ValueError("checkerboard sweep needs even M_lat")
-        else:
-            raise NotImplementedError(
-                "the ported heat-bath sampler covers the quenched Schwinger "
-                "action and the rotor; the other QM actions and the GFF are "
-                "later slices (ROADMAP.md, open items 10-11)")
         super().__init__(action)
         self.n_sweep_heatbath = int(n_sweep_heatbath)
         self.n_sweep_overrelax = int(n_sweep_overrelax)
         self.n_burnin = int(n_burnin)
+        #: one launch of the fused sweep kernel per draw: the quenched
+        #: Schwinger action, the plain (unsmoothed, unrotated) GFF and the
+        #: rotor, as in the JAX package
         self.use_pallas = bool(use_pallas)
+        self._kind = None
+        if use_pallas:
+            if type(action) is QuenchedSchwingerAction:
+                self._kind = "schwinger"
+            elif (type(action) is GFFAction and action.n_gibbs_smooth == 0
+                  and not action.lattice.rotated):
+                self._kind = "gff"
+            elif type(action) is RotorAction:
+                self._kind = "rotor"
+            else:
+                raise ValueError("use_pallas requires the quenched "
+                                 "Schwinger action, the plain GFF or the "
+                                 "rotor")
+        #: a fused draw takes only a seed pair (host words) from its
+        #: generator: a CPU generator serves it without a read from the card
+        self.host_seeded = self.use_pallas
 
     def init(self, generator, n_chains, dtype, device):
         return HeatBathState(x=self.action.initialise_state(
             generator, n_chains, dtype, device))
 
-    # -- rotor half-sweeps -----------------------------------------------------
+    # -- 1-D half-sweeps --------------------------------------------------------
 
     def _half_sweep_heatbath(self, generator, x, parity: int):
         """Update all sites of one parity from their conditional given the
@@ -86,28 +108,31 @@ class OverrelaxedHeatBathSampler(Sampler):
         if self._kind == "rotor":
             return dict(kappa=self.action.m0 / self.action.a_lat,
                         M=lat.M_lat, **kw)
+        if self._kind == "gff":
+            return dict(kappa=4.0 + self.action.mu2, Mt=lat.Mt_lat,
+                        Mx=lat.Mx_lat, **kw)
         return dict(beta=self.action.beta, Mt=lat.Mt_lat, Mx=lat.Mx_lat,
                     **kw)
 
     def draw(self, generator, state: HeatBathState):
         x = state.x
         if self.use_pallas:
-            from mlmcpathintegral_tpu_torch.ops import rotor, schwinger
-            sweep = (rotor.rotor_sweep if self._kind == "rotor"
-                     else schwinger.schwinger_sweep)
+            from mlmcpathintegral_tpu_torch.ops import gff, rotor, schwinger
+            sweep = {"rotor": rotor.rotor_sweep, "gff": gff.gff_sweep,
+                     "schwinger": schwinger.schwinger_sweep}[self._kind]
             x = sweep(x, kernel_seed(generator), **self._kernel_kw())
-        elif self._kind == "rotor":
+        elif self._action_sweeps:
+            for _ in range(self.n_sweep_overrelax):
+                x = self.action.overrelaxation_sweep(x)
+            for _ in range(self.n_sweep_heatbath):
+                x = self.action.heatbath_sweep(generator, x)
+        else:
             for _ in range(self.n_sweep_overrelax):
                 x = self._half_sweep_overrelax(x, 0)
                 x = self._half_sweep_overrelax(x, 1)
             for _ in range(self.n_sweep_heatbath):
                 x = self._half_sweep_heatbath(generator, x, 0)
                 x = self._half_sweep_heatbath(generator, x, 1)
-        else:
-            for _ in range(self.n_sweep_overrelax):
-                x = self.action.overrelaxation_sweep(x)
-            for _ in range(self.n_sweep_heatbath):
-                x = self.action.heatbath_sweep(generator, x)
         accept = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
         return HeatBathState(x=x), accept
 
@@ -118,7 +143,7 @@ class OverrelaxedHeatBathSampler(Sampler):
         ``use_pallas`` this is one launch of the sweep-chain kernel;
         otherwise a loop of draws (gauge actions only)."""
         x = state.x
-        if self.use_pallas:
+        if self._kind in ("rotor", "schwinger"):
             from mlmcpathintegral_tpu_torch.ops import rotor, schwinger
             chain = (rotor.rotor_sweep_chain if self._kind == "rotor"
                      else schwinger.schwinger_sweep_chain)

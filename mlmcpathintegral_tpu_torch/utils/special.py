@@ -11,6 +11,7 @@ Reference parity (formulas re-derived, behaviour matched):
   * fast_i0_scaled              — src/common/fastbessel.hh:26-50
   * Sigma_hat                   — src/common/auxilliary.cc:7-27
   * Phi_chit / compute_In       — src/common/auxilliary.cc:44-194
+  * gff_phi_squared_analytical  — src/common/auxilliary.cc:197-209
 """
 
 from __future__ import annotations
@@ -156,3 +157,12 @@ def Phi_chit(beta: float, n_plaq: int) -> float:
         beta * weight * (ddIn / In - (n_plaq - 1) * (dIn / In) ** 2)
     )
     return float(phi_chit)
+
+
+def gff_phi_squared_analytical(mass: float, Mt_lat: int, Mx_lat: int) -> float:
+    """Spectral sum for <phi^2> of the 2-D Gaussian free field."""
+    mu2 = mass * mass / (Mt_lat * Mx_lat)
+    k1 = np.sin(math.pi * np.arange(Mt_lat) / Mt_lat) ** 2
+    k2 = np.sin(math.pi * np.arange(Mx_lat) / Mx_lat) ** 2
+    denom = 4.0 * (k1[:, None] + k2[None, :]) + mu2
+    return float(np.sum(1.0 / denom) / (Mt_lat * Mx_lat))

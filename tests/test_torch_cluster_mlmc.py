@@ -590,8 +590,13 @@ def test_still_unported_configurations_raise(kind):
         with pytest.raises(NotImplementedError, match="sequential screen"):
             _mlmc("heatbath_unfused", cond=_SequentialFill)
     elif kind == "gff_heatbath":
-        with pytest.raises(NotImplementedError, match="later slices"):
-            OverrelaxedHeatBathSampler(object())
+        # the GFF heat bath is ported; its fused sweep, as in JAX, takes
+        # the plain GFF only, never the Gibbs-smoothed coarse action
+        from mlmcpathintegral_tpu_torch.models import GFFAction
+        smoothed = GFFAction(Lattice2D(8, 8, CoarseningType.ROTATE), 1.0,
+                             n_gibbs_smooth=2)
+        with pytest.raises(ValueError, match="use_pallas"):
+            OverrelaxedHeatBathSampler(smoothed, use_pallas=True)
     else:
         act = RotorAction(Lattice1D(16, 4.0),
                           RenormalisationType.NONPERTURBATIVE, 0.25)

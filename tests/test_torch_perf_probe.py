@@ -93,3 +93,30 @@ def test_bound_ms_takes_the_larger_of_bytes_and_operations(nbytes, nops,
                                                            want):
     t, by = perf_probe.bound_ms(nbytes, nops)
     assert t == pytest.approx(want[0], rel=1e-12) and by == want[1]
+
+
+def test_path_e_configuration():
+    """Path E: the reference's GFF file driven single-level on the fused
+    sweep kernel at 4096 f32 chains, 512 sampling draws a chain; the one
+    cut is n_samples."""
+    from mlmcpathintegral_tpu_torch.drivers import common, qft
+    from mlmcpathintegral_tpu_torch.lattice2d import Lattice2D
+    from mlmcpathintegral_tpu_torch.utils.config import read_parameter_file
+    cfg = perf_probe.gff_path_e_config()
+    ref = read_parameter_file(perf_probe.PATH_E_CONFIG)
+    assert cfg["general"]["method"] == "singlelevel"
+    assert cfg["parallel"] == {"n_chains": 4096, "dtype": "float32"}
+    assert cfg["singlelevelmc"]["n_samples"] == 4096 * 512
+    changed = {(sec, k) for sec in cfg for k in cfg[sec]
+               if ref.get(sec, {}).get(k) != cfg[sec][k]}
+    assert changed == {("general", "method"), ("heatbath", "use_pallas"),
+                       ("parallel", "n_chains"), ("parallel", "dtype"),
+                       ("singlelevelmc", "n_samples")}
+    act = qft.build_action(cfg, Lattice2D(16, 16))
+    assert (act.mass, act.ndof) == (10.0, 256)
+    with pytest.warns(UserWarning, match="random_order"):
+        factory = common.make_sampler_factory("heatbath", cfg)
+    sampler = factory(act)
+    assert sampler._kind == "gff" and sampler.host_seeded
+    assert (sampler.n_burnin, sampler.n_sweep_overrelax,
+            sampler.n_sweep_heatbath) == (100, 1, 1)
