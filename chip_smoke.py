@@ -46,9 +46,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                against its plain version at path A's launch shape (M=16,
                1024 chains, 5 updates; 64 steps compared, the 1-step launch
                timed by the profiler's device time per launch, the host's
-               time per launch beside it) and at path B1's launch (M=256,
-               4096 chains, 128 steps x 10 updates), on winding sums and
-               fields;
+               time per launch beside it), at path B1's launch (M=256,
+               4096 chains, 128 steps x 10 updates) and at a ragged M (24
+               sites: idle lanes; 64 chains, 64 steps x 10 updates), on
+               winding sums and fields; with each launch's layout,
+               registers a thread and resident blocks and warps an SM;
   8. rotor_chains - paths B1 (ClusterSampler on the cluster kernel) and B2
                (OverrelaxedHeatBathSampler on the sweep kernel, started
                from B1's paths): the rotor of bench.py's
@@ -85,8 +87,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the t_sub path C measured, without (sampling), on the
                per-step fine/coarse QoI and accept traces and the
                per-trajectory clock traces (see ``departures``), and the
-               final fields and cached actions (>= SHARE_MIN within TOL).
-               It runs after phase 13, whose t_sub it takes.
+               final fields and cached actions (>= SHARE_MIN within TOL),
+               with the launch's layout, registers a thread and resident
+               blocks and warps an SM.  It runs after phase 13, whose
+               t_sub it takes.
  14. gff_sweep - the GFF sweep kernel (csrc/gff_sweep.cu) against its
                plain version: overrelax-only within 1e-6, and after 64
                heat-bath draws (1 overrelax + 1 heat bath each) every chain
@@ -686,8 +690,10 @@ def main() -> int:
     clat = headline_mlmc_cluster().actions[-1]
     kappa2_A = 2.0 * clat.beta          # I = beta_c a, a = 1/M: 2 I/a
     A_M, A_C = clat.lattice.Mt_lat * clat.lattice.Mx_lat, 1024
+    # the ragged launch: the same rotor at M=24 (kappa2 = 2 I M / T)
     shapes = (("path_A", A_C, A_M, 64, 5, kappa2_A),
-              ("path_B1", B_C, B_M, B_STEPS, 10, 2.0 * kappa))
+              ("path_B1", B_C, B_M, B_STEPS, 10, 2.0 * kappa),
+              ("ragged_M24", 64, 24, 64, 10, 2.0 * B_I * 24 / B_T))
     k7_ok = True
     for name, C, M, n_steps, n_upd, k2 in shapes:
         x = (torch.rand(C, M, generator=gen, device=dev) * 2 - 1) * math.pi
@@ -702,6 +708,14 @@ def main() -> int:
         rep["field_share_identical"] = float(
             (k[0] == p[0]).all(dim=1).double().mean())
         k7_ok &= ok and rep["field_share_within_1e-4"] >= SHARE_MIN
+        rep["layout"] = dict(zip(
+            ("lanes_per_chain", "sites_per_lane", "chains_per_block",
+             "smem_bytes"), rotor.cluster_launch(M, C)))
+        rep["attrs"] = rotor.cluster_attrs(M, C)
+        if name.startswith("ragged"):
+            rep["launch"] = dict(chains=C, **ckw)
+            r7[name] = rep
+            continue
         # the launch the path makes: path A one step per coarse draw
         lkw = dict(ckw, n_steps=1) if name == "path_A" else ckw
         rep["plain_ms"] = plain_ms if lkw is ckw else cuda_ms(
@@ -741,7 +755,9 @@ def main() -> int:
                   **r7["path_A"]["bound"],
                   ms_path_B1=r7["path_B1"]["ms"],
                   plain_ms_path_B1=r7["path_B1"]["plain_ms"],
-                  bound_ms_path_B1=r7["path_B1"]["bound"]["bound_ms"])
+                  bound_ms_path_B1=r7["path_B1"]["bound"]["bound_ms"],
+                  attrs=r7["path_A"]["attrs"],
+                  attrs_path_B1=r7["path_B1"]["attrs"])
 
     # ---- 8. paths B1 and B2: rotor chains through the samplers ----------
     from mlmcpathintegral_tpu_torch.lattice import Lattice1D
@@ -986,8 +1002,12 @@ def main() -> int:
                             rep["coarse_share_within_1e-4"],
                             rep["s_cache_share_within_1e-4"]) >= SHARE_MIN
         r11["burn_in" if traces else "sampling"] = rep
+    k6_attrs = qtl.qm_twolevel_attrs(Mc, C6)
     emit({"phase": "qm_twolevel", "chains": C6, "Mc": Mc, "nt": 100,
-          "n_steps": 64, **r11})
+          "n_steps": 64, "layout": dict(zip(
+              ("lanes_per_chain", "sites_per_lane", "chains_per_block",
+               "smem_bytes"), qtl.qm_twolevel_launch(Mc, C6))),
+          "attrs": k6_attrs, **r11})
     if not k6_ok:
         fail("QM two-level kernel disagrees with its plain version")
     rS = r11["sampling"]
@@ -999,7 +1019,7 @@ def main() -> int:
                   ms_burn_in_launch=r11["burn_in"]["ms"],
                   plain_ms_burn_in_launch=r11["burn_in"]["plain_ms"],
                   bound_ms_burn_in_launch=r11["burn_in"]["bound"][
-                      "bound_ms"])
+                      "bound_ms"], attrs=k6_attrs)
 
     # ---- 14. K9, P1, P2: the GFF sweep, the neighbour sum, step-less RNG
     from mlmcpathintegral_tpu_torch.ops import gff

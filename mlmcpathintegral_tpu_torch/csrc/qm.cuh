@@ -1,6 +1,6 @@
-// Device helpers of the QM kernels (hmc_trajectory.cu, qm_twolevel.cu):
-// per-chain barriers and sums over a chain's power-of-two thread group, and
-// the quartic-oscillator force and action density.
+// Device helpers of the QM kernels: per-chain barriers and sums over a
+// chain's power-of-two thread group (hmc_trajectory.cu), and the
+// quartic-oscillator force and action density (both QM kernels).
 //
 // A chain lives on one group of tpc consecutive threads (a power of two);
 // when tpc <= 32 the group lies inside one warp, so a warp barrier and a

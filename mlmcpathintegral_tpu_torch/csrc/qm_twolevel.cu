@@ -19,17 +19,26 @@
 // What bounds it on the H100: latency.  A launch reads and writes the
 // chain's planes and coarse path once (3 Mc floats) and writes a few
 // floats per step; between, each step runs t_sub * nt dependent leapfrog
-// rounds.  The design keeps the planes, the coarse path, the trajectory and
-// its momenta in shared memory for the whole launch, one thread per coarse
-// site and one power-of-two thread group per chain: at Mc <= 32 the group
-// is inside one warp, so its barriers are warp barriers and its sums
-// shuffles (qm.cuh).  Every thread hashes site 0's accept word itself.
+// rounds.  The design puts a chain on one warp (on a power-of-two share of
+// one when Mc < 32, several chains a warp) and holds everything in
+// registers: lane l keeps sites l S .. l S + S - 1 of the coarse path, the
+// trajectory, its momenta and both fine planes, S a template parameter
+// (Mc / 32 rounded up to a power of two).  A leapfrog round reads the two
+// neighbours across lane boundaries with one shuffle each way and touches
+// no memory; the lanes and wrap of those shuffles are fixed once a launch.
+// The sums are shuffle butterflies, which leave the same bits in every
+// lane, so each lane takes the same accept decisions.  The coarse action
+// of the current path is carried from one trajectory's test to the next
+// (it equals the recomputed value bit for bit), and site 0's accept word
+// is hashed by lane 0 and broadcast.
 
 #include <cuda_runtime.h>
 
 #include "qm.cuh"
 
 namespace mlmc {
+
+constexpr int QM_TWOLEVEL_THREADS_MAX = 128;
 
 struct QmTwolevelArgs {
   int C, Mc, nt, n_steps, t_sub, with_traces;
@@ -42,121 +51,199 @@ struct QmTwolevelArgs {
   float rho, ccw, kcurv, k3;
   float inv_M, inv_Mc;
   uint32_t seed1, seed2;
-  int tpc, cpb;
+  int lanes;  // lanes per chain: a power of two <= 32
 };
 
-// S_c of the chain's coarse path x at spacing 2a
+// The ring of a chain's Mc sites on its lanes: lane l holds sites l S + k,
+// k < S, of which the first n are real (n < S only on the last lane, and 0
+// on idle lanes).  Every lane of the warp must call the shuffling members.
+template <int S>
+struct Ring {
+  int n;     // real sites of this lane
+  int G;     // lanes per chain
+  int prev;  // lane holding the site before this lane's first
+  int next;  // lane holding the site after this lane's last real one
+
+  // values at j-1 (vm) and j+1 (vp) of this lane's sites j
+  __device__ __forceinline__ void neighbours(const float (&v)[S],
+                                             float (&vm)[S],
+                                             float (&vp)[S]) const {
+    float last = v[S - 1];
+#pragma unroll
+    for (int k = 0; k < S - 1; ++k) {
+      if (k == n - 1) last = v[k];
+    }
+    const float from_prev = __shfl_sync(0xffffffffu, last, prev, G);
+    const float from_next = __shfl_sync(0xffffffffu, v[0], next, G);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      vm[k] = k == 0 ? from_prev : v[k > 0 ? k - 1 : 0];
+      vp[k] = (k == S - 1 || k == n - 1) ? from_next
+                                         : v[k < S - 1 ? k + 1 : k];
+    }
+  }
+
+  // sum over the chain of t over this lane's real sites, in site order
+  // within the lane, then the butterfly
+  __device__ __forceinline__ float total(const float (&t)[S]) const {
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (k < n) v += t[k];
+    }
+    return lanes_sum(v, G);
+  }
+
+  __device__ __forceinline__ float sum_sq(const float (&v)[S]) const {
+    float t[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) t[k] = v[k] * v[k];
+    return total(t);
+  }
+};
+
+template <int S>
 __device__ __forceinline__ float coarse_action(const QmTwolevelArgs& a,
-                                               const float* x, float* red,
-                                               int lt) {
-  float v = 0.0f;
-  for (int j = lt; j < a.Mc; j += a.tpc) {
-    v += a.coarse.density(x[j], x[j == 0 ? a.Mc - 1 : j - 1]);
-  }
-  return a.kac * group_sum(v, red, a.tpc);
+                                               const Ring<S>& r,
+                                               const float (&x)[S]) {
+  float xm[S], xp[S], t[S];
+  r.neighbours(x, xm, xp);
+#pragma unroll
+  for (int k = 0; k < S; ++k) t[k] = a.coarse.density(x[k], xm[k]);
+  return a.kac * r.total(t);
 }
 
+// normals of words 1-2 of this lane's sites at `step` into out; returns
+// site 0's accept uniform (word 3), hashed by the chain's lane 0
+template <int S>
+__device__ __forceinline__ float draw_momenta(const QmTwolevelArgs& a,
+                                              const Ring<S>& r, int lt,
+                                              uint32_t cw1, uint32_t cw2,
+                                              uint32_t cw3, uint32_t step,
+                                              float (&out)[S]) {
+  uint32_t b0 = 0u;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const uint32_t bs =
+        step_base(site_hash(a.seed1, (uint32_t)(lt * S + k)), step);
+    if (k == 0) b0 = bs;
+    out[k] = box_muller(bits_uniform(split_bits(bs, cw1, 1u)),
+                        bits_uniform(split_bits(bs, cw2, 2u)));
+  }
+  float u = 0.0f;
+  if (lt == 0) u = bits_uniform(split_bits(b0, cw3, 3u));
+  return __shfl_sync(0xffffffffu, u, 0, r.G);
+}
+
+template <int S>
 __device__ __forceinline__ void coarse_kick(const QmTwolevelArgs& a,
-                                            const float* x, float* p,
-                                            float h, int lt) {
-  for (int j = lt; j < a.Mc; j += a.tpc) {
-    const float xm = x[j == 0 ? a.Mc - 1 : j - 1];
-    const float xp = x[j == a.Mc - 1 ? 0 : j + 1];
-    p[j] = p[j] - h * a.coarse.force(x[j], xm, xp);
+                                            const Ring<S>& r,
+                                            const float (&x)[S],
+                                            float (&p)[S], float h) {
+  float xm[S], xp[S];
+  r.neighbours(x, xm, xp);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    p[k] = p[k] - h * a.coarse.force(x[k], xm[k], xp[k]);
   }
 }
 
-__device__ __forceinline__ float sum_sq(const float* x, float* red, int n,
-                                        int lt, int tpc) {
-  float v = 0.0f;
-  for (int j = lt; j < n; j += tpc) v += x[j] * x[j];
-  return group_sum(v, red, tpc);
+template <int S>
+__device__ __forceinline__ void drift(float (&x)[S], const float (&p)[S],
+                                      float dt) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) x[k] = x[k] + dt * p[k];
 }
 
-__global__ void qm_twolevel_kernel(
-    const float* __restrict__ fine_in, const float* __restrict__ xc_in,
-    const float* __restrict__ sc_in, const float* __restrict__ dt_in,
-    float* __restrict__ fine_out, float* __restrict__ xc_out,
-    float* __restrict__ sc_out, float* __restrict__ qf_out,
-    float* __restrict__ qc_out, float* __restrict__ cs_out,
-    float* __restrict__ ec_out, float* __restrict__ acc_out,
-    QmTwolevelArgs a) {
-  extern __shared__ float smem[];
+template <int S>
+__global__ void __launch_bounds__(QM_TWOLEVEL_THREADS_MAX)
+    qm_twolevel_kernel(const float* __restrict__ fine_in,
+                       const float* __restrict__ xc_in,
+                       const float* __restrict__ sc_in,
+                       const float* __restrict__ dt_in,
+                       float* __restrict__ fine_out,
+                       float* __restrict__ xc_out,
+                       float* __restrict__ sc_out, float* __restrict__ qf_out,
+                       float* __restrict__ qc_out, float* __restrict__ cs_out,
+                       float* __restrict__ ec_out,
+                       float* __restrict__ acc_out, QmTwolevelArgs a) {
   const int Mc = a.Mc;
   const int C = a.C;
-  const int lc = threadIdx.x / a.tpc;
-  const int lt = threadIdx.x - lc * a.tpc;
-  const int chain = blockIdx.x * a.cpb + lc;
+  const int G = a.lanes;
+  const int lc = threadIdx.x / G;
+  const int lt = threadIdx.x & (G - 1);
+  const int chain = blockIdx.x * (blockDim.x / G) + lc;
   const bool valid = chain < C;
   const uint32_t ch = (uint32_t)chain;
-  float* xe = smem + (size_t)lc * 5 * Mc;  // fine even plane
-  float* xo = xe + Mc;                     // fine odd plane
-  float* xc = xo + Mc;                     // coarse chain
-  float* xt = xc + Mc;                     // trajectory position
-  float* p = xt + Mc;                      // momenta, then the odd trial
-  float* red = smem + (size_t)a.cpb * 5 * Mc;
+  const int L = (Mc + S - 1) / S;  // lanes holding sites
+  Ring<S> r;
+  r.n = max(0, min(S, Mc - lt * S));
+  r.G = G;
+  r.prev = lt == 0 ? L - 1 : lt - 1;
+  r.next = lt == L - 1 ? 0 : lt + 1;
+  const uint32_t cw1 = chain_word(a.seed2, ch, 1u);
+  const uint32_t cw2 = chain_word(a.seed2, ch, 2u);
+  const uint32_t cw3 = chain_word(a.seed2, ch, 3u);
 
-  for (int j = lt; j < Mc; j += a.tpc) {
-    const size_t o = (size_t)chain * Mc + j;
-    xe[j] = valid ? fine_in[o] : 0.0f;
-    xo[j] = valid ? fine_in[(size_t)C * Mc + o] : 0.0f;
-    xc[j] = valid ? xc_in[o] : 0.0f;
+  float xe[S], xo[S], xc[S], xt[S], p[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const size_t o = (size_t)chain * Mc + lt * S + k;
+    const bool real = valid && k < r.n;
+    xe[k] = real ? fine_in[o] : 0.0f;
+    xo[k] = real ? fine_in[(size_t)C * Mc + o] : 0.0f;
+    xc[k] = real ? xc_in[o] : 0.0f;
   }
   float S_f = valid ? sc_in[chain] : 0.0f;
   float S_q = valid ? sc_in[C + chain] : 0.0f;
   const float dt = dt_in[0];
   const float hdt = 0.5f * dt;
-  group_sync(a.tpc);
+  // S_c of the current coarse path, carried through the accept tests
+  float S_cur = coarse_action(a, r, xc);
 
   for (int s = 0; s < a.n_steps; ++s) {
     const int base = s * (a.t_sub + 1);
     // ---- t_sub coarse HMC trajectories ----
     for (int t = 0; t < a.t_sub; ++t) {
-      const uint32_t step = (uint32_t)(base + t);
-      for (int j = lt; j < Mc; j += a.tpc) {
-        const CounterRng rng(a.seed1, a.seed2, (uint32_t)j, ch, step);
-        p[j] = rng.normal(1u);
-        xt[j] = xc[j];
-      }
-      group_sync(a.tpc);
-      const float T_cur = 0.5f * sum_sq(p, red, Mc, lt, a.tpc);
-      const float S_cur = coarse_action(a, xc, red, lt);
-      coarse_kick(a, xt, p, hdt, lt);
-      group_sync(a.tpc);
-      for (int j = lt; j < Mc; j += a.tpc) xt[j] = xt[j] + dt * p[j];
-      group_sync(a.tpc);
+      const float u_acc =
+          draw_momenta(a, r, lt, cw1, cw2, cw3, (uint32_t)(base + t), p);
+#pragma unroll
+      for (int k = 0; k < S; ++k) xt[k] = xc[k];
+      const float T_cur = 0.5f * r.sum_sq(p);
+      coarse_kick(a, r, xt, p, hdt);
+      drift(xt, p, dt);
+#pragma unroll 2
       for (int k = 0; k < a.nt - 1; ++k) {
-        coarse_kick(a, xt, p, dt, lt);
-        group_sync(a.tpc);
-        for (int j = lt; j < Mc; j += a.tpc) xt[j] = xt[j] + dt * p[j];
-        group_sync(a.tpc);
+        coarse_kick(a, r, xt, p, dt);
+        drift(xt, p, dt);
       }
-      coarse_kick(a, xt, p, hdt, lt);
-      group_sync(a.tpc);
-      const float S_new = coarse_action(a, xt, red, lt);
-      const float dH =
-          (S_new - S_cur) + (0.5f * sum_sq(p, red, Mc, lt, a.tpc) - T_cur);
-      const CounterRng rng0(a.seed1, a.seed2, 0u, ch, step);
-      const bool accept = dH < 0.0f || rng0.uniform(3u) < expf(-dH);
+      coarse_kick(a, r, xt, p, hdt);
+      const float S_new = coarse_action(a, r, xt);
+      const float dH = (S_new - S_cur) + (0.5f * r.sum_sq(p) - T_cur);
+      const bool accept = dH < 0.0f || u_acc < expf(-dH);
       if (accept) {
-        for (int j = lt; j < Mc; j += a.tpc) xc[j] = xt[j];
+#pragma unroll
+        for (int k = 0; k < S; ++k) xc[k] = xt[k];
+        S_cur = S_new;
       }
-      group_sync(a.tpc);
       if (a.with_traces) {
-        const float cs = a.inv_Mc * sum_sq(xc, red, Mc, lt, a.tpc);
+        const float cs = a.inv_Mc * r.sum_sq(xc);
         if (valid && lt == 0) {
           const size_t row = (size_t)(s * a.t_sub + t) * C + chain;
           cs_out[row] = cs;
-          ec_out[row] = accept ? S_new : S_cur;
+          ec_out[row] = S_cur;
         }
       }
     }
 
-    // ---- trial: prolongate + Gaussian conditional fill ----
-    const uint32_t fstep = (uint32_t)(base + a.t_sub);
-    float sq = 0.0f;
-    for (int j = lt; j < Mc; j += a.tpc) {
-      const float xbar = 0.5f * (xc[j] + xc[j == Mc - 1 ? 0 : j + 1]);
+    // ---- trial: prolongate + Gaussian conditional fill (odd plane in p) --
+    const float u_acc = draw_momenta(a, r, lt, cw1, cw2, cw3,
+                                     (uint32_t)(base + a.t_sub), p);
+    float cm[S], cp[S], terms[S];
+    r.neighbours(xc, cm, cp);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const float xbar = 0.5f * (xc[k] + cp[k]);
       float w = xbar;
       for (int it = 0; it < 4; ++it) {
         const float xs = w - a.coarse.x0;
@@ -164,51 +251,48 @@ __global__ void qm_twolevel_kernel(
       }
       const float xs = xbar - a.coarse.x0;
       const float curv = a.kcurv + a.k3 * xs * xs;
-      const CounterRng rng(a.seed1, a.seed2, (uint32_t)j, ch, fstep);
-      const float xo_t = w + rng.normal(1u) * rsqrtf(curv);
-      p[j] = xo_t;
-      const float d = xo_t - w;
-      sq += 0.5f * curv * d * d - 0.5f * logf(curv);
+      p[k] = w + p[k] * rsqrtf(curv);
+      const float d = p[k] - w;
+      terms[k] = 0.5f * curv * d * d - 0.5f * logf(curv);
     }
-    group_sync(a.tpc);
-    const float S_q_trial = group_sum(sq, red, a.tpc);
-    // fine action of (xc, xo_t): site 2j has neighbours (xo_{j-1}, xo_j)
-    float sf = 0.0f;
-    for (int j = lt; j < Mc; j += a.tpc) {
-      const float e = xc[j];
-      const float o = p[j];
+    const float S_q_trial = r.total(terms);
+    // fine action of (xc, p): site 2j has neighbours (p_{j-1}, p_j)
+    float pm[S], pp[S];
+    r.neighbours(p, pm, pp);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const float e = xc[k];
+      const float o = p[k];
       const float d1 = o - e;
-      const float d2 = p[j == 0 ? Mc - 1 : j - 1] - e;
+      const float d2 = pm[k] - e;
       const float qe0 = e - a.coarse.x0;
       const float qo0 = o - a.coarse.x0;
       const float qe = qe0 * qe0;
       const float qo = qo0 * qo0;
-      sf += a.coarse.m0 * ((d1 * d1 + d2 * d2) / a.a2f +
-                           a.coarse.mu2 * (e * e + o * o)) +
-            a.coarse.hl * (qe * qe + qo * qo);
+      terms[k] = a.coarse.m0 * ((d1 * d1 + d2 * d2) / a.a2f +
+                            a.coarse.mu2 * (e * e + o * o)) +
+             a.coarse.hl * (qe * qe + qo * qo);
     }
-    const float S_f_trial = a.kaf * group_sum(sf, red, a.tpc);
+    const float S_f_trial = a.kaf * r.total(terms);
 
     // ---- three-term dS ----
-    const float dS_coarse =
-        coarse_action(a, xe, red, lt) - coarse_action(a, xc, red, lt);
+    const float dS_coarse = coarse_action(a, r, xe) - S_cur;
     const float dS = (S_f_trial - S_f) + dS_coarse + (S_q - S_q_trial);
-    const CounterRng rng0(a.seed1, a.seed2, 0u, ch, fstep);
-    const bool accept = dS < 0.0f || rng0.uniform(3u) < expf(-dS);
+    const bool accept = dS < 0.0f || u_acc < expf(-dS);
     if (accept) {
-      for (int j = lt; j < Mc; j += a.tpc) {
-        xe[j] = xc[j];
-        xo[j] = p[j];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        xe[k] = xc[k];
+        xo[k] = p[k];
       }
       S_f = S_f_trial;
       S_q = S_q_trial;
     }
-    group_sync(a.tpc);
 
     // ---- QoI traces ----
-    const float se = sum_sq(xe, red, Mc, lt, a.tpc);
-    const float so = sum_sq(xo, red, Mc, lt, a.tpc);
-    const float qc = a.inv_Mc * sum_sq(xc, red, Mc, lt, a.tpc);
+    const float se = r.sum_sq(xe);
+    const float so = r.sum_sq(xo);
+    const float qc = a.inv_Mc * r.sum_sq(xc);
     if (valid && lt == 0) {
       const size_t row = (size_t)s * C + chain;
       qf_out[row] = a.inv_M * (se + so);
@@ -218,11 +302,14 @@ __global__ void qm_twolevel_kernel(
   }
 
   if (valid) {
-    for (int j = lt; j < Mc; j += a.tpc) {
-      const size_t o = (size_t)chain * Mc + j;
-      fine_out[o] = xe[j];
-      fine_out[(size_t)C * Mc + o] = xo[j];
-      xc_out[o] = xc[j];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (k < r.n) {
+        const size_t o = (size_t)chain * Mc + lt * S + k;
+        fine_out[o] = xe[k];
+        fine_out[(size_t)C * Mc + o] = xo[k];
+        xc_out[o] = xc[k];
+      }
     }
     if (lt == 0) {
       sc_out[chain] = S_f;
@@ -235,14 +322,28 @@ __global__ void qm_twolevel_kernel(
   }
 }
 
+// the kernel for `sites` sites a lane (a power of two, 1 .. 32), or null
+static const void* kernel_for(int sites) {
+  switch (sites) {
+    case 1: return (const void*)qm_twolevel_kernel<1>;
+    case 2: return (const void*)qm_twolevel_kernel<2>;
+    case 4: return (const void*)qm_twolevel_kernel<4>;
+    case 8: return (const void*)qm_twolevel_kernel<8>;
+    case 16: return (const void*)qm_twolevel_kernel<16>;
+    case 32: return (const void*)qm_twolevel_kernel<32>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace mlmc
 
 // fine_in/fine_out: [2, C, Mc] f32 even/odd planes; xc_in/xc_out: [C, Mc];
 // sc_in/sc_out: [2, C] (S_fine, S_cond); dt: one f32 in device memory;
 // qf/qc/acc: [n_steps, C]; cs/ec: [n_steps * t_sub, C] with traces, else
 // [1, C] (written as zeros).  Outputs may not alias inputs.  The constants
-// are folded on the host (ops/qm_twolevel.py).  tpc threads per chain (a
-// power of two), cpb chains per block, smem bytes of dynamic shared memory.
+// are folded on the host (ops/qm_twolevel.py).  lanes per chain (a power
+// of two <= 32), threads per block (a multiple of 32, at most 128), sites
+// a lane (a power of two <= 32, with lanes * sites >= Mc).
 extern "C" int mlmc_qm_twolevel(
     const float* fine_in, const float* xc_in, const float* sc_in,
     const float* dt, float* fine_out, float* xc_out, float* sc_out,
@@ -251,7 +352,7 @@ extern "C" int mlmc_qm_twolevel(
     float al_c, float x0, float a2_c, float mu2, float m0, float hl,
     float kac, float kaf, float a2f, float rho, float ccw, float kcurv,
     float k3, float inv_M, float inv_Mc, uint32_t seed1, uint32_t seed2,
-    int tpc, int cpb, size_t smem, void* stream) {
+    int lanes, int threads, int sites, void* stream) {
   mlmc::QmTwolevelArgs a{C,
                          Mc,
                          nt,
@@ -270,18 +371,32 @@ extern "C" int mlmc_qm_twolevel(
                          inv_Mc,
                          seed1,
                          seed2,
-                         tpc,
-                         cpb};
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mlmc::qm_twolevel_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+                         lanes};
+  const void* kernel = mlmc::kernel_for(sites);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const int cpb = threads / lanes;
+  void* args[] = {&fine_in, &xc_in, &sc_in, &dt, &fine_out, &xc_out,
+                  &sc_out,  &qf,    &qc,    &cs, &ec,       &acc,
+                  &a};
+  cudaError_t e = cudaLaunchKernel(kernel, dim3((C + cpb - 1) / cpb),
+                                   dim3(threads), args, 0,
+                                   (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// Registers a thread, local (spilled) bytes a thread and resident blocks
+// an SM of the kernel for `sites` sites a lane at `threads` a block:
+// out[0..2].
+extern "C" int mlmc_qm_twolevel_attrs(int threads, int sites, int* out) {
+  const void* kernel = mlmc::kernel_for(sites);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa{};
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      threads, 0);
   }
-  const int blocks = (C + cpb - 1) / cpb;
-  mlmc::qm_twolevel_kernel<<<blocks, tpc * cpb, smem,
-                             (cudaStream_t)stream>>>(
-      fine_in, xc_in, sc_in, dt, fine_out, xc_out, sc_out, qf, qc, cs, ec,
-      acc, a);
-  return (int)cudaGetLastError();
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  return (int)e;
 }

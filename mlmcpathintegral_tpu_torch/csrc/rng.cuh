@@ -82,6 +82,40 @@ struct CounterRng {
   }
 };
 
+// The same bits split into the parts a kernel can hoist out of its loops
+// (rotor_cluster.cu, qm_twolevel.cu): for every (site, chain, step, ctr)
+//   split_bits(step_base(site_hash(seed1, site), step),
+//              chain_word(seed2, chain, ctr), ctr)
+//     == CounterRng(seed1, seed2, site, chain, step).bits(ctr).
+// site_hash is fixed for a launch, chain_word for a chain and a counter.
+__device__ __forceinline__ uint32_t site_hash(uint32_t seed1, uint32_t site) {
+  return fmix32((site * 0x9E3779B9u) ^ seed1);
+}
+
+__device__ __forceinline__ uint32_t step_base(uint32_t site_h, uint32_t step) {
+  return fmix32(site_h + step * 0x165667B1u);
+}
+
+__device__ __forceinline__ uint32_t chain_word(uint32_t seed2, uint32_t chain,
+                                               uint32_t ctr) {
+  return fmix32(fmix32((chain * 0x85EBCA77u) ^ seed2) + ctr * 0x27D4EB2Fu);
+}
+
+__device__ __forceinline__ uint32_t split_bits(uint32_t base_s, uint32_t cw,
+                                               uint32_t ctr) {
+  return fmix32(fmix32(base_s + ctr * 0xC2B2AE3Du) + cw);
+}
+
+// (0, 1] uniform of a word's bits, as CounterRng::uniform
+__device__ __forceinline__ float bits_uniform(uint32_t b) {
+  return 2.0f - __uint_as_float((b >> 9) | 0x3F800000u);
+}
+
+// Box-Muller normal of a radius and an angle uniform, as CounterRng::normal
+__device__ __forceinline__ float box_muller(float u1, float u2) {
+  return sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI_F * u2);
+}
+
 // [-pi, pi) wrap (utils.special.mod_2pi)
 __device__ __forceinline__ float mod_2pi(float x) {
   return x - TWO_PI_F * floorf(0.5f * (x + PI_F) / PI_F);
@@ -110,6 +144,25 @@ __device__ __forceinline__ void chain_sum(float (&v)[K], float* red,
 #pragma unroll
   for (int k = 0; k < K; ++k) v[k] = red[k * nt + tid - lt];
   __syncthreads();
+}
+
+// Sum and minimum over the `lanes` consecutive lanes of one chain (a power
+// of two <= 32, aligned, so a chain never straddles two warps); every lane
+// of the warp must call them and every lane gets its chain's value.  The
+// sum's butterfly leaves the same bits in every lane of the chain.
+__device__ __forceinline__ float lanes_sum(float v, int lanes) {
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+__device__ __forceinline__ int lanes_min(int v, int lanes) {
+  if (lanes == 32) return __reduce_min_sync(0xffffffffu, v);
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
 }
 
 }  // namespace mlmc

@@ -18,15 +18,28 @@
 // CounterRng(site, chain, step = s n_updates + u) words 1 (u_refl),
 // 2 (u_seed), 3 (u_f), 4 (u_b).
 //
-// What bounds it on the H100: latency.  A chain's path (M floats) is read
-// once and written once per launch; each update is a cosine per site, two
-// per-chain min-reductions and a flip, separated by barriers, with only a
-// few hundred operations per site between them.  The design keeps the
-// path and its cosines in shared memory for the whole launch, gives one
-// thread to each site and one power-of-two group of threads to each chain
-// (several chains share a block when M is small), and reduces F_raw and
-// B_raw with a shared-memory tree per chain.  Every thread hashes site 0's
-// two words itself instead of waiting for a broadcast.
+// One pass for both extents.  The backward walk depends on F_raw only
+// through its terminal bond k* = B_lim - 1, which is the bond that closed
+// the forward walk (walk order rel = F_raw).  So each site tests its bond
+// once: forward as above, backward with p_one for every bond (minimum m1),
+// and remembers, for the first forward-closed bond it holds, whether its
+// u_b also passes p_two.  Then B = min(m1, 1) when F_raw = M, else
+// B = m1 if m1 < k*, k* if bond k*'s u_b >= p_two, B_lim otherwise: the
+// same float comparisons on the same values as the two-pass form
+// (ops/rotor.py _cluster_update), so the same F_raw and B for every input.
+//
+// What bounds it on the H100: latency and instruction throughput.  A
+// chain's path (M floats) is read once and written once per launch; an
+// update is a cosine, an exponential and two counter words per site, then
+// two per-chain minima and the flip.  The design puts a chain on one
+// warp, or on a power-of-two share of one when M < 32 (several chains a
+// warp), with site m on lane m mod lanes: the path and the update's
+// cosines live in the chain's own slice of shared memory, the minima are
+// warp reductions (__reduce_min_sync, or a shuffle butterfly inside a
+// warp), and nothing waits on a block-wide barrier.  The site and chain
+// halves of every counter word are hashed once a launch (rng.cuh
+// split_bits), and site 0's reflection and seed words once a chain, by its
+// lane 0, while the previous update's minima are in flight.
 
 #include <cuda_runtime.h>
 
@@ -34,105 +47,108 @@
 
 namespace mlmc {
 
+constexpr int CLUSTER_THREADS_MAX = 128;
+
 struct RotorClusterArgs {
   int C, M, n_steps, n_updates;
   float kappa2;
   uint32_t seed1, seed2;
-  int tpc, cpb;
+  int lanes;  // lanes per chain: a power of two <= 32
 };
 
-// Minimum of one int per thread over the tpc consecutive threads of one
-// chain; every thread of the block must call it and gets its chain's
-// minimum.  red: shared scratch of blockDim.x ints.
-__device__ __forceinline__ int chain_min(int v, int* red, int tpc) {
-  const int tid = threadIdx.x;
-  const int lt = tid & (tpc - 1);
-  red[tid] = v;
-  __syncthreads();
-  for (int off = tpc >> 1; off > 0; off >>= 1) {
-    if (lt < off) red[tid] = min(red[tid], red[tid + off]);
-    __syncthreads();
-  }
-  v = red[tid - lt];
-  __syncthreads();
-  return v;
-}
-
-// opening probabilities of bond (m, m+1) with one and with two flipped
-// endpoints
-__device__ __forceinline__ void bond_probs(const float* c, int m, int M,
-                                           float kappa2, float* p_one,
-                                           float* p_two) {
-  const float s = -kappa2 * c[m] * c[m == M - 1 ? 0 : m + 1];
-  *p_one = 1.0f - expf(fminf(s, 0.0f));
-  *p_two = 1.0f - expf(fminf(-s, 0.0f));
-}
-
-__global__ void rotor_cluster_kernel(const float* __restrict__ x_in,
-                                     float* __restrict__ x_out,
-                                     float* __restrict__ wsum,
-                                     RotorClusterArgs a) {
+__global__ void __launch_bounds__(CLUSTER_THREADS_MAX)
+    rotor_cluster_kernel(const float* __restrict__ x_in,
+                         float* __restrict__ x_out, float* __restrict__ wsum,
+                         RotorClusterArgs a) {
   extern __shared__ float smem[];
+  const unsigned FULL = 0xffffffffu;
   const int M = a.M;
-  const int lc = threadIdx.x / a.tpc;
-  const int lt = threadIdx.x - lc * a.tpc;
-  const int chain = blockIdx.x * a.cpb + lc;
+  const int G = a.lanes;
+  const int lc = threadIdx.x / G;
+  const int lt = threadIdx.x & (G - 1);
+  const int chain = blockIdx.x * (blockDim.x / G) + lc;
   const bool valid = chain < a.C;
   const uint32_t ch = (uint32_t)chain;
-  float* x = smem + (size_t)lc * M;
-  float* c = smem + (size_t)a.cpb * M + (size_t)lc * M;
-  float* red = smem + (size_t)2 * a.cpb * M;
-  int* ired = reinterpret_cast<int*>(red);
+  // this chain's lanes among the warp's (for the ballot)
+  const unsigned group =
+      G == 32 ? FULL : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  float* x = smem + (size_t)lc * 2 * M;
+  float* c = x + M;
+
+  const uint32_t cw1 = chain_word(a.seed2, ch, 1u);
+  const uint32_t cw2 = chain_word(a.seed2, ch, 2u);
+  const uint32_t cw3 = chain_word(a.seed2, ch, 3u);
+  const uint32_t cw4 = chain_word(a.seed2, ch, 4u);
+  const uint32_t h0 = site_hash(a.seed1, 0u);
 
   const float* src = x_in + (size_t)chain * M;
-  for (int m = lt; m < M; m += a.tpc) x[m] = valid ? src[m] : 0.0f;
-  __syncthreads();
+  for (int m = lt; m < M; m += G) x[m] = valid ? src[m] : 0.0f;
+  __syncwarp();
+
+  // site 0's reflection and seed words of update `step`, hashed by the
+  // chain's lane 0 (one update ahead, beside the minima) and broadcast
+  auto site0_words = [&](uint32_t step, float* u_refl, float* u_seed) {
+    float r = 0.0f, q = 0.0f;
+    if (lt == 0) {
+      const uint32_t b0 = step_base(h0, step);
+      r = bits_uniform(split_bits(b0, cw1, 1u));
+      q = bits_uniform(split_bits(b0, cw2, 2u));
+    }
+    *u_refl = __shfl_sync(FULL, r, 0, G);
+    *u_seed = __shfl_sync(FULL, q, 0, G);
+  };
+  float u_refl, u_seed;
+  site0_words(0u, &u_refl, &u_seed);
 
   for (int st = 0; st < a.n_steps; ++st) {
     for (int u = 0; u < a.n_updates; ++u) {
       const uint32_t step = (uint32_t)(st * a.n_updates + u);
-      const CounterRng rng0(a.seed1, a.seed2, 0u, ch, step);
-      const float xbar = (2.0f * rng0.uniform(1u) - 1.0f) * PI_F;
-      const float u_seed = rng0.uniform(2u);
+      const float xbar = (2.0f * u_refl - 1.0f) * PI_F;
       const int i0 = min((int)floorf((1.0f - u_seed) * (float)M), M - 1);
 
-      for (int m = lt; m < M && valid; m += a.tpc) c[m] = cosf(x[m] - xbar);
-      __syncthreads();
+      for (int m = lt; m < M; m += G) c[m] = cosf(x[m] - xbar);
+      __syncwarp();
 
-      // forward walk: first closed bond in walk order rel = (m - i0) mod M
-      int f_min = M;
-      for (int m = lt; m < M && valid; m += a.tpc) {
-        float p_one, p_two;
-        bond_probs(c, m, M, a.kappa2, &p_one, &p_two);
-        const int d = m - i0;
-        const int rel = d < 0 ? d + M : d;
-        const CounterRng rng(a.seed1, a.seed2, (uint32_t)m, ch, step);
-        if (rng.uniform(3u) >= (rel == M - 1 ? p_two : p_one)) {
-          f_min = min(f_min, rel);
-        }
-      }
-      const int F_raw = chain_min(f_min, ired, a.tpc);
-      const int B_lim = F_raw >= M ? 1 : M - F_raw;
-
-      // backward walk: bond m is tested (rel_b - 1)-th, rel_b = (i0 - m)
-      // mod M; its terminal link re-flips the forward walk's last site
-      int b_min = M;
-      for (int m = lt; m < M && valid; m += a.tpc) {
-        float p_one, p_two;
-        bond_probs(c, m, M, a.kappa2, &p_one, &p_two);
+      // bond m = (m, m+1): forward walk order rel = (m - i0) mod M,
+      // backward order k_bw (rel_b - 1, rel_b = (i0 - m) mod M)
+      int f_min = M, b_min = M;
+      bool f_two = false;
+      for (int m = lt; m < M; m += G) {
+        // of 1 - exp(min(0, s)) and 1 - exp(min(0, -s)) one is
+        // 1 - exp(0) = 0: one exponential gives both, to the bit
+        const float s = -a.kappa2 * c[m] * c[m == M - 1 ? 0 : m + 1];
+        const float p = 1.0f - expf(-fabsf(s));
+        const float p_one = s < 0.0f ? p : 0.0f;
+        const float p_two = s > 0.0f ? p : 0.0f;
+        const uint32_t bs = step_base(site_hash(a.seed1, (uint32_t)m), step);
+        const float u_f = bits_uniform(split_bits(bs, cw3, 3u));
+        const float u_b = bits_uniform(split_bits(bs, cw4, 4u));
         const int d = m - i0;
         const int rel = d < 0 ? d + M : d;
         const int rel_b = rel == 0 ? 0 : M - rel;
         const int k_bw = rel_b == 0 ? M - 1 : rel_b - 1;
-        const bool term = k_bw == B_lim - 1 && F_raw < M;
-        const CounterRng rng(a.seed1, a.seed2, (uint32_t)m, ch, step);
-        if (rng.uniform(4u) >= (term ? p_two : p_one)) {
-          b_min = min(b_min, k_bw);
+        if (u_f >= (rel == M - 1 ? p_two : p_one) && rel < f_min) {
+          f_min = rel;
+          f_two = u_b >= p_two;
         }
+        if (u_b >= p_one) b_min = min(b_min, k_bw);
       }
-      const int B = min(chain_min(b_min, ired, a.tpc), B_lim);
+      const int F_raw = lanes_min(f_min, G);
+      const int m1 = lanes_min(b_min, G);
+      site0_words(step + 1u, &u_refl, &u_seed);
+      // the lane holding the bond that closed the forward walk tells
+      // whether its backward word passes p_two
+      const bool t_two =
+          (__ballot_sync(FULL, f_two && f_min == F_raw) & group) != 0u;
+      int B;
+      if (F_raw >= M) {
+        B = min(m1, 1);
+      } else {
+        const int k_star = M - F_raw - 1;  // B_lim - 1
+        B = m1 < k_star ? m1 : (t_two ? k_star : k_star + 1);
+      }
 
-      for (int m = lt; m < M && valid; m += a.tpc) {
+      for (int m = lt; m < M; m += G) {
         const int d = m - i0;
         const int rel = d < 0 ? d + M : d;
         const int rel_b = rel == 0 ? 0 : M - rel;
@@ -141,42 +157,61 @@ __global__ void rotor_cluster_kernel(const float* __restrict__ x_in,
                             (rel == 0 && F_raw >= M) + (rel == 0 && B >= M);
         if (n_flips & 1) x[m] = mod_2pi(PI_F + 2.0f * xbar - x[m]);
       }
-      __syncthreads();
+      __syncwarp();
     }
-    float v[1] = {0.0f};
-    for (int m = lt; m < M && valid; m += a.tpc) {
-      v[0] += mod_2pi(x[m == M - 1 ? 0 : m + 1] - x[m]);
+    float v = 0.0f;
+    for (int m = lt; m < M; m += G) {
+      v += mod_2pi(x[m == M - 1 ? 0 : m + 1] - x[m]);
     }
-    chain_sum<1>(v, red, a.tpc);
-    if (valid && lt == 0) wsum[(size_t)st * a.C + chain] = v[0];
+    v = lanes_sum(v, G);
+    if (valid && lt == 0) wsum[(size_t)st * a.C + chain] = v;
   }
 
   if (valid) {
     float* dst = x_out + (size_t)chain * M;
-    for (int m = lt; m < M; m += a.tpc) dst[m] = x[m];
+    for (int m = lt; m < M; m += G) dst[m] = x[m];
   }
+}
+
+static cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(rotor_cluster_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace mlmc
 
-// x_in/x_out: [C, M] f32 (may not alias); wsum: [n_steps, C] f32.  tpc
-// threads per chain (a power of two), cpb chains per block, smem bytes of
-// dynamic shared memory.
+// x_in/x_out: [C, M] f32 (may not alias); wsum: [n_steps, C] f32.  lanes
+// per chain (a power of two <= 32), threads per block (a multiple of 32,
+// at most 128), smem bytes of dynamic shared memory (2 M floats a chain).
 extern "C" int mlmc_rotor_cluster(const float* x_in, float* x_out,
                                   float* wsum, int C, int M, int n_steps,
                                   int n_updates, float kappa2, uint32_t seed1,
-                                  uint32_t seed2, int tpc, int cpb,
+                                  uint32_t seed2, int lanes, int threads,
                                   size_t smem, void* stream) {
-  mlmc::RotorClusterArgs a{C,      M,     n_steps, n_updates, kappa2,
-                           seed1,  seed2, tpc,     cpb};
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mlmc::rotor_cluster_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  mlmc::RotorClusterArgs a{C,     M,     n_steps, n_updates,
+                           kappa2, seed1, seed2,  lanes};
+  cudaError_t e = mlmc::allow_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  const int cpb = threads / lanes;
   const int blocks = (C + cpb - 1) / cpb;
-  mlmc::rotor_cluster_kernel<<<blocks, tpc * cpb, smem,
+  mlmc::rotor_cluster_kernel<<<blocks, threads, smem,
                                (cudaStream_t)stream>>>(x_in, x_out, wsum, a);
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, local (spilled) bytes a thread and resident blocks
+// an SM of a launch with these threads and shared bytes: out[0..2].
+extern "C" int mlmc_rotor_cluster_attrs(int threads, size_t smem, int* out) {
+  cudaFuncAttributes fa{};
+  cudaError_t e = cudaFuncGetAttributes(&fa, mlmc::rotor_cluster_kernel);
+  if (e == cudaSuccess) e = mlmc::allow_smem(smem);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], mlmc::rotor_cluster_kernel, threads, smem);
+  }
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  return (int)e;
 }

@@ -61,10 +61,12 @@ _SIGNATURES = {
     "mlmc_rotor_cluster": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
                            c_float, c_u32, c_u32, c_int, c_int, c_size,
                            c_ptr],
+    "mlmc_rotor_cluster_attrs": [c_int, c_size, ctypes.POINTER(c_int)],
     "mlmc_hmc_trajectory": [c_ptr] * 6 + [c_int] * 4 + [c_float] * 9
     + [c_int, c_int, c_size, c_ptr],
     "mlmc_qm_twolevel": [c_ptr] * 12 + [c_int] * 6 + [c_float] * 17
-    + [c_u32, c_u32, c_int, c_int, c_size, c_ptr],
+    + [c_u32, c_u32, c_int, c_int, c_int, c_ptr],
+    "mlmc_qm_twolevel_attrs": [c_int, c_int, ctypes.POINTER(c_int)],
 }
 
 
@@ -230,6 +232,33 @@ def block_layout(n_items: int, target_threads: int = 64,
     tpc = min(max_threads, next_pow2(n_items))
     cpb = max(1, target_threads // tpc)
     return tpc, cpb
+
+
+#: the warp-per-chain kernels (K6, K7): warps a block, and the dynamic
+#: shared memory a block stays within unless one chain needs more
+WARPS_PER_BLOCK = 4
+SMEM_DEFAULT = 48 * 1024
+
+
+def warp_layout(n_lanes: int):
+    """(lanes per chain, chains per warp) for kernels that put a chain on
+    one warp, or on a power-of-two share of one when it needs fewer than
+    32 lanes: the shares are aligned, so a chain never straddles warps and
+    its reductions are warp shuffles."""
+    lanes = min(32, next_pow2(n_lanes))
+    return lanes, 32 // lanes
+
+
+def kernel_attrs(fn_name: str, *args) -> dict:
+    """Registers a thread, spilled (local) bytes a thread and resident
+    blocks an SM of one kernel at one launch shape, from the library's
+    ``<fn_name>(*args, int out[3])`` (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor); ``args`` starts with
+    the block's threads, which give the resident warps."""
+    out = (c_int * 3)()
+    check_status(getattr(load_library(), fn_name)(*args, out), fn_name)
+    return {"registers_per_thread": out[0], "local_bytes_per_thread": out[1],
+            "blocks_per_sm": out[2], "warps_per_sm": out[2] * args[0] // 32}
 
 
 def run_device(device="cuda") -> torch.device:

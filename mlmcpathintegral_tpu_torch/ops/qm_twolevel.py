@@ -19,7 +19,8 @@ the fill uses step s (t_sub + 1) + t_sub the same way.  The supported fine
 actions are the harmonic and the quartic oscillator, one code path: lam = 0
 reduces the quartic formulas (the Wminimum fixed point included) to the
 harmonic ones.  ``t_sub`` and ``with_traces`` are run-time arguments of
-the kernel.
+the kernel; the sites a lane holds in registers are its template
+parameter, so the kernel takes Mc up to 1024 (``qm_twolevel_launch``).
 """
 
 from __future__ import annotations
@@ -132,16 +133,35 @@ def qm_twolevel_chain_plain(fine, x_coarse, s_cache, dt, seed, *, m0, mu2,
             stack(qcs), cs, ec, stack(accs))
 
 
-def qm_twolevel_smem_bytes(Mc: int, n_chains: int | None = None):
-    """(threads per chain, chains per block, dynamic shared bytes) of the
-    kernel's launch: five [Mc] planes per chain (fine even and odd, coarse,
-    trajectory, momenta) and a reduction slot per thread.  At most 512
-    threads per chain: the kernel holds 84 registers a thread (nvcc 12.8),
-    and 1024 such threads exceed the SM's 65 536."""
-    tpc, cpb = _cuda.block_layout(Mc, max_threads=512)
+#: the most sites one lane of the kernel holds in registers: Mc <= 32 * 32
+MAX_SITES_PER_LANE = 32
+
+
+def qm_twolevel_launch(Mc: int, n_chains: int | None = None):
+    """(lanes per chain, sites per lane, chains per block, dynamic shared
+    bytes) of the kernel's launch: a chain on one warp, or on a
+    power-of-two share of one when Mc < 32; lane l holds sites l S ..
+    l S + S - 1 in registers, S = Mc / 32 rounded up to a power of two
+    (the kernel's template parameter); up to four warps a block; no shared
+    memory."""
+    sites = _cuda.next_pow2(-(-Mc // 32))
+    if sites > MAX_SITES_PER_LANE:
+        raise NotImplementedError(
+            f"the two-level kernel holds at most {32 * MAX_SITES_PER_LANE} "
+            f"coarse sites a chain in registers; got Mc={Mc}")
+    lanes, per_warp = _cuda.warp_layout(-(-Mc // sites))
+    warps = _cuda.WARPS_PER_BLOCK
     if n_chains is not None:
-        cpb = max(1, min(cpb, n_chains))
-    return tpc, cpb, 4 * (cpb * 5 * Mc + tpc * cpb)
+        warps = max(1, min(warps, -(-n_chains // per_warp)))
+    return lanes, sites, warps * per_warp, 0
+
+
+def qm_twolevel_attrs(Mc: int, n_chains: int):
+    """Registers a thread, spilled bytes a thread and resident blocks and
+    warps an SM of the kernel at its launch for n_chains chains of Mc
+    coarse sites (the card is needed)."""
+    lanes, sites, cpb, _ = qm_twolevel_launch(Mc, n_chains)
+    return _cuda.kernel_attrs("mlmc_qm_twolevel_attrs", lanes * cpb, sites)
 
 
 def _qm_twolevel_cuda(fine, x_coarse, s_cache, dt, seed, *, m0, mu2, lam,
@@ -153,8 +173,7 @@ def _qm_twolevel_cuda(fine, x_coarse, s_cache, dt, seed, *, m0, mu2, lam,
     dt = torch.as_tensor(dt, dtype=torch.float32, device=fine.device)
     _cuda.require_cuda("dt", dt.reshape(1), (1,))
     check_element_capacity(Mc, C)
-    tpc, cpb, smem = qm_twolevel_smem_bytes(Mc, C)
-    _cuda.check_smem(smem, fine.device, f"the Mc={Mc} two-level paths")
+    lanes, sites, cpb, _ = qm_twolevel_launch(Mc, C)
     seed1, seed2 = seed_pair(seed)
     m0, mu2, lam, x0, a = (float(m0), float(mu2), float(lam), float(x0),
                            float(a_lat))
@@ -177,7 +196,8 @@ def _qm_twolevel_cuda(fine, x_coarse, s_cache, dt, seed, *, m0, mu2, lam,
         0.5 * lam, 0.5 * ac, 0.5 * a, a * a,
         1.0 / (1.0 + 0.5 * a * a * mu2), 0.5 * a * a * lam / m0,
         (2.0 / a + a * mu2) * m0, 3.0 * lam * a, 1.0 / (2 * Mc), 1.0 / Mc,
-        seed1, seed2, tpc, cpb, smem, _cuda.stream_ptr(fine.device))
+        seed1, seed2, lanes, lanes * cpb, sites,
+        _cuda.stream_ptr(fine.device))
     _cuda.check_status(err, "qm_twolevel kernel launch")
     QM_TWOLEVEL.launches += 1
     return fine_out, xc_out, sc_out, qf, qc, cs, ec, acc

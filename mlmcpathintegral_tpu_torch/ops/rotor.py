@@ -29,7 +29,10 @@ first closed backward bond, with the two terminal links of a full wrap
 tested with both endpoints flipped (``samplers/cluster.py`` _vector_core).
 Update u of step s draws its words from CounterRng(step = s n_updates + u)
 in the order u_refl, u_seed, u_f, u_b; the reflection xbar and the seed
-i0 come from site 0's words.
+i0 come from site 0's words.  The CUDA kernel takes both minima from one
+test per bond (its header says how); the plain version keeps the
+two-pass form, and tests/test_torch_ops_rotor_extents.py holds the two
+equal.
 """
 
 from __future__ import annotations
@@ -223,14 +226,28 @@ def rotor_cluster_chain_plain(x, seed, *, kappa2, M, n_steps, n_updates=10):
     return x, (torch.stack(ws) if ws else x.new_zeros((0, C)))
 
 
-def cluster_smem_bytes(M: int, n_chains: int | None = None):
-    """(threads per chain, chains per block, dynamic shared bytes) of the
-    cluster kernel's launch: one thread per site; the path, its cosines
-    and a reduction slot per thread in shared memory."""
-    tpc, cpb = _cuda.block_layout(M)
+def cluster_launch(M: int, n_chains: int | None = None):
+    """(lanes per chain, sites per lane, chains per block, dynamic shared
+    bytes) of the cluster kernel's launch: a chain on one warp, or on a
+    power-of-two share of one when M < 32, site m on lane m mod lanes; the
+    path and its cosines (2 M floats) in the chain's slice of shared
+    memory; up to four warps a block, fewer where the chains or 48 KB of
+    shared memory run out first."""
+    lanes, per_warp = _cuda.warp_layout(M)
+    warps = min(_cuda.WARPS_PER_BLOCK,
+                max(1, _cuda.SMEM_DEFAULT // (8 * M * per_warp)))
     if n_chains is not None:
-        cpb = max(1, min(cpb, n_chains))
-    return tpc, cpb, 4 * (2 * cpb * M + tpc * cpb)
+        warps = max(1, min(warps, -(-n_chains // per_warp)))
+    cpb = warps * per_warp
+    return lanes, -(-M // lanes), cpb, 8 * M * cpb
+
+
+def cluster_attrs(M: int, n_chains: int):
+    """Registers a thread, spilled bytes a thread and resident blocks and
+    warps an SM of the cluster kernel at its launch for [n_chains, M]
+    (the card is needed)."""
+    lanes, _, cpb, smem = cluster_launch(M, n_chains)
+    return _cuda.kernel_attrs("mlmc_rotor_cluster_attrs", lanes * cpb, smem)
 
 
 def rotor_cluster_chain(x, seed, *, kappa2, M, n_steps, n_updates=10):
@@ -243,14 +260,14 @@ def rotor_cluster_chain(x, seed, *, kappa2, M, n_steps, n_updates=10):
     C = x.shape[0]
     _cuda.require_cuda("x", x, (C, M))
     check_element_capacity(M, C)
-    tpc, cpb, smem = cluster_smem_bytes(M, C)
+    lanes, _, cpb, smem = cluster_launch(M, C)
     _cuda.check_smem(smem, x.device, f"the M={M} rotor path")
     seed1, seed2 = seed_pair(seed)
     out = torch.empty_like(x)
     wsum = torch.empty((n_steps, C), dtype=x.dtype, device=x.device)
     err = _cuda.load_library().mlmc_rotor_cluster(
         x.data_ptr(), out.data_ptr(), wsum.data_ptr(), C, M, n_steps,
-        n_updates, float(kappa2), seed1, seed2, tpc, cpb, smem,
+        n_updates, float(kappa2), seed1, seed2, lanes, lanes * cpb, smem,
         _cuda.stream_ptr(x.device))
     _cuda.check_status(err, "rotor_cluster kernel launch")
     CLUSTER.launches += 1

@@ -19,7 +19,7 @@ from mlmcpathintegral_tpu_torch.conditioned.qm import (
 from mlmcpathintegral_tpu_torch.lattice import Lattice1D
 from mlmcpathintegral_tpu_torch.models import QuarticOscillatorAction
 from mlmcpathintegral_tpu_torch.ops.qm_twolevel import (
-    qm_twolevel_chain, qm_twolevel_chain_plain,
+    qm_twolevel_chain, qm_twolevel_chain_plain, qm_twolevel_launch,
 )
 
 torch.set_num_threads(1)
@@ -79,3 +79,28 @@ def test_wrapper_runs_plain_version_on_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         qm_twolevel_chain(fine.to("meta"), xc, sc, 0.2, 1, m0=1.0, mu2=1.0,
                           a_lat=0.25, nt=2, n_steps=1, t_sub=1)
+
+
+@pytest.mark.parametrize("Mc,C,want", [
+    # path C's launch: one site a lane, a warp a chain
+    (32, 4096, (32, 1, 4)),
+    # ragged: a quarter-warp chain; 2 and 4 sites a lane with idle lanes
+    (8, 4096, (8, 1, 16)),
+    (48, 4096, (32, 2, 4)),
+    (100, 4096, (32, 4, 4)),
+    # a last lane holding fewer sites than the others; few chains
+    (33, 4096, (32, 2, 4)),
+    (8, 5, (8, 1, 8)),
+    (1024, 1, (32, 32, 1)),
+])
+def test_launch_layout(Mc, C, want):
+    """(lanes per chain, sites per lane, chains per block) of the two-level
+    kernel, which uses no shared memory: whole warps a block, every site
+    in a lane's registers, the sites a lane a power of two (the kernel's
+    template parameter)."""
+    lanes, sites, cpb, smem = qm_twolevel_launch(Mc, C)
+    assert (lanes, sites, cpb) == want and smem == 0
+    assert sites & (sites - 1) == 0 and lanes * sites >= Mc
+    assert (lanes * cpb) % 32 == 0 and lanes * cpb <= 128
+    with pytest.raises(NotImplementedError, match="at most 1024"):
+        qm_twolevel_launch(1025, C)

@@ -141,3 +141,25 @@ def test_rejection_tally_counts_rounds_of_the_plain_loops():
                                      n_steps=steps)
     assert torch.equal(out, out2) and torch.equal(w, w2)
     assert set(tally) == {"expcos"}
+
+
+@pytest.mark.parametrize("M,C,want", [
+    # path A (half-warp chains, two a warp), path B1 (8 sites a lane)
+    (16, 1024, (16, 1, 8, 8 * 8 * 16)),
+    (256, 4096, (32, 8, 4, 4 * 8 * 256)),
+    # ragged: idle lanes, and a last pass over some lanes only
+    (24, 64, (32, 1, 4, 4 * 8 * 24)),
+    (100, 4096, (32, 4, 4, 4 * 8 * 100)),
+    # few chains: one warp a block; a path beyond 48 KB: one chain a block
+    (16, 3, (16, 1, 4, 4 * 8 * 16)),
+    (20_000, 8, (32, 625, 1, 8 * 20_000)),
+])
+def test_cluster_launch_layout(M, C, want):
+    """(lanes per chain, sites per lane, chains per block, shared bytes)
+    of the cluster kernel: whole warps a block, every site on a lane, the
+    path and its cosines (8 bytes a site) in each chain's slice."""
+    lanes, sites, cpb, smem = got = tpr.cluster_launch(M, C)
+    assert got == want
+    assert lanes * sites >= M > lanes * (sites - 1) or lanes > M
+    assert (lanes * cpb) % 32 == 0 and lanes * cpb <= 128
+    assert smem == 8 * M * cpb
