@@ -20,13 +20,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                1e-4 after 4 draws (>= SHARE_MIN), and the main path's
                coarsest-level launch (4x4, beta_c=1, 1024 chains,
                n_steps=2048) against the plain version on its per-step
-               Q and E traces (see ``departures``);
+               Q and E traces (see ``departures``), with the sha256 of its
+               outputs (two trees compare by it), its layout (lanes a
+               chain, chains a block, branch: warp, block or global),
+               registers a thread and resident warps an SM, and the
+               rejection rounds of its plain version;
   4. twolevel - the two-level kernel at the main path's launch (8x8,
                beta=4, 1024 chains, n_steps=256, t_sub=8) against the
                plain version on its per-step y, accept, qc and ec traces
                (see ``departures``), and at beta=10 (the beta > 8 fill)
                for 4 steps: the share of chains whose y, acc, S_fine,
-               S_cond and fine field agree to 1e-4 (>= SHARE_MIN);
+               S_cond and fine field agree to 1e-4 (>= SHARE_MIN); the
+               main launch's sha256, layout, registers, resident warps and
+               rejection rounds as in phase 3;
   5. mlmc    - the main path: MonteCarloMultiLevel with the settings of
                bench.py's bench_schwinger_mlmc, as
                ``perf_probe.headline_mlmc`` builds it (8x8, both-direction
@@ -34,7 +40,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                1024 chains, f32, 100k samples per level, chunk 256) on
                the card; it must go through the kernels (launch counters
                > 0, no plain-version call on CUDA) and land within 4 sigma
-               of the analytic chi_t;
+               of the analytic chi_t; printed with the layouts and
+               rejection rounds of its two kernels' launches;
   6. rotor_sweep - the rotor sweep kernel (csrc/rotor_sweep.cu):
                overrelax-only identical to the plain version, one
                rotor_sweep against it, and path B2's launch (M=256, 4096
@@ -136,8 +143,9 @@ first 16, and at no later step may more than MAX_HAZARD of the chains
 still together depart at once (a fault tied to step or counter ids would
 move them all).
 
-Then the card line of nvidia-smi, the kernel table as one JSON object, and
-as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
+Then the script's own wall seconds, the card line of nvidia-smi, the
+kernel table as one JSON object, and as the last line
+``{"ok": true, "device": {...}}``.  Without a CUDA card,
 or without the package beside this script, it exits non-zero and prints
 no result.
 """
@@ -145,6 +153,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import subprocess
@@ -171,6 +180,15 @@ HAZARD_MIN_ALIVE = 100
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def sha256_of(tensors):
+    """sha256 (16 hex digits) of the tensors' bytes in order: two trees'
+    kernels at the same launch on the same card compare by it."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def fail(msg):
@@ -415,6 +433,14 @@ def work_p1(C, Mx, Mt):
     return 4 * 2 * C * Mx * Mt, 7 * C * Mx * Mt
 
 
+def launch_layout(launch, attrs):
+    """A Schwinger kernel's launch layout (its launch function's (lanes,
+    chains a block, shared bytes, branch)) with its registers a thread and
+    resident warps an SM (the occupancy API)."""
+    return {"lanes_per_chain": launch[0], "chains_per_block": launch[1],
+            "smem_bytes": launch[2], "branch": launch[3], **attrs}
+
+
 def bound_ms_row(nbytes, nops):
     from mlmcpathintegral_tpu_torch.perf_probe import bound_ms
     t, by = bound_ms(nbytes, nops)
@@ -424,6 +450,7 @@ def bound_ms_row(nbytes, nops):
 
 
 def main() -> int:
+    start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -547,11 +574,16 @@ def main() -> int:
     main_rep, main_ok = departures(
         (dq <= TOL) & (de <= TOL),
         torch.maximum((k[1] - p[1]).abs(), (k[2] - p[2]).abs()).double())
+    main_rep["sha256"] = sha256_of(k)
     sweep_res["main_launch"] = main_rep
     ms = cuda_ms(lambda: schwinger.schwinger_sweep_chain(thL, (5, 6),
                                                          **mkw), 5)
+    k3_layout = {f"{M}x{M}": launch_layout(schwinger.sweep_launch(
+        M, M, C, _cuda.max_smem_optin(0)), schwinger.sweep_attrs(M, M, C))
+        for M, C in ((4, 1024), (8, 1024))}
     sweep_res.update(ms=ms, plain_ms=plain_ms,
-                     main_shape="4x4, 1024 chains, n_steps=2048")
+                     main_shape="4x4, 1024 chains, n_steps=2048",
+                     layout=k3_layout, rejection_rounds=k3_rounds)
     emit({"phase": "sweep", **sweep_res})
     if or_err > 1e-5 or not sweep_res["chain_equals_stepwise"] \
             or min(shares.values()) < SHARE_MIN or not main_ok:
@@ -559,7 +591,8 @@ def main() -> int:
     sweep_row = dict(max_abs_err=main_rep["max_abs_err_while_together"],
                      ms=ms, plain_ms=plain_ms, **bound_ms_row(*work_k3(
                          1024, 4, 4, 2048, k3_rounds["expcos"])),
-                     rejection_rounds=k3_rounds)
+                     rejection_rounds=k3_rounds, layout=k3_layout["4x4"],
+                     sha256_main_launch=main_rep["sha256"])
 
     # ---- 4. K4: two-level chain -----------------------------------------
     def carry(beta, C=1024):
@@ -591,11 +624,15 @@ def main() -> int:
     main_rep, main_ok = departures(agree, (k[4] - p[4]).abs().double())
     main_rep["accept_rate"] = float(k[7].mean())
     main_rep["accept_rate_plain"] = float(p[7].mean())
+    main_rep["sha256"] = sha256_of(k)
     tl_res["main_launch"] = main_rep
     ms = cuda_ms(lambda: tl.schwinger_twolevel_chain(*args, (1, 2), **mkw),
                  3)
+    k4_layout = launch_layout(tl.twolevel_launch(8, 8, 1024),
+                              tl.twolevel_attrs(8, 8, 1024))
     tl_res.update(ms=ms, plain_ms=plain_ms,
-                  main_shape="8x8, 1024 chains, n_steps=256, t_sub=8")
+                  main_shape="8x8, 1024 chains, n_steps=256, t_sub=8",
+                  layout=k4_layout, rejection_rounds=k4_rounds)
     # the beta > 8 fill (Gaussian mixture), off the main path: 4 steps
     args, beta_c = carry(10.0)
     kw = dict(beta=10.0, beta_c=beta_c, Mt=8, Mx=8, n_steps=4, t_sub=8)
@@ -612,7 +649,8 @@ def main() -> int:
     tl_row = dict(max_abs_err=main_rep["max_abs_err_while_together"],
                   ms=ms, plain_ms=plain_ms, **bound_ms_row(*work_k4(
                       1024, 8, 8, 256, 8, k4_rounds["expcos"],
-                      k4_rounds["bessel"])), rejection_rounds=k4_rounds)
+                      k4_rounds["bessel"])), rejection_rounds=k4_rounds,
+                  layout=k4_layout, sha256_main_launch=main_rep["sha256"])
 
     # ---- 5. the main path -----------------------------------------------
     mc = headline_mlmc()
@@ -634,6 +672,10 @@ def main() -> int:
           "cost_per_sample_us": mc.cost_per_sample,
           "method_wall_s": method_wall, "eff_samples_per_sec": eff,
           "launches": launches, "plain_calls_on_cuda": plain_cuda,
+          "layout": {schwinger.SWEEP.name: k3_layout["4x4"],
+                     tl.TWOLEVEL.name: k4_layout},
+          "rejection_rounds": {schwinger.SWEEP.name: k3_rounds,
+                               tl.TWOLEVEL.name: k4_rounds},
           "reliable": mc.reliable})
     if not math.isfinite(num) or not math.isfinite(err) or err <= 0:
         fail("main path gave a non-finite estimate")
@@ -1123,7 +1165,10 @@ def main() -> int:
                          2 * math.pi) - math.pi
     r14["schwinger_256x256"] = {
         "in_global_memory": schwinger.sweep_launch(
-            256, 256, 64, _cuda.max_smem_optin(0))[3],
+            256, 256, 64, _cuda.max_smem_optin(0))[3] == "global",
+        "layout": launch_layout(schwinger.sweep_launch(
+            256, 256, 64, _cuda.max_smem_optin(0)),
+            schwinger.sweep_attrs(256, 256, 64)),
         "overrelax_max_abs_err": k3_or,
         "heatbath_link_share_within_1e-4": float(
             (dl.abs() <= TOL).double().mean()),
@@ -1213,6 +1258,7 @@ def main() -> int:
                  "launches": rep_e["launches"][ops.RNG_FILL.name], **p2_row})
     rows[0]["also_replaces"] = "mlmcpathintegral_tpu/ops/" \
         "pallas_schwinger.py:233"   # schwinger_sweep: the same kernel
+    rows[0]["ms_256x256_global"] = r14["schwinger_256x256"]["ms"]
     rows[3]["also_replaces"] = "mlmcpathintegral_tpu/ops/" \
         "pallas_rotor.py:140"       # rotor_sweep: the same kernel
     rows[2]["launches_path_B1"] = rep_b1["launches"][rotor.CLUSTER.name]
@@ -1224,6 +1270,7 @@ def main() -> int:
                         if r["name"] not in (hmc.HMC.name, gff.NBSUM.name)],
         "checked_through": ops.RNG_FILL.name,
         "rng_fill_launches": launches[ops.RNG_FILL.name], **rng_row}]
+    emit({"phase": "done", "seconds": time.monotonic() - start})
     print(card_line, flush=True)
     emit({"kernels": rows, "device_functions": device_functions})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,21 +12,31 @@
 // (2 Mx Mt floats, 128 B for the 4x4 coarsest level of the 8x8 headline)
 // is read once and written once per launch; between, every draw is
 // 8 quarter-sweeps of stencil reads from shared memory, counter hashing
-// and a data-dependent rejection loop, separated by block barriers.
-// The design keeps the whole chain resident in shared memory for all
-// n_steps draws (one global round trip per launch, as the Pallas kernel
-// keeps it in VMEM) and packs several chains into a block so that small
-// lattices still give each block a few warps.  Q and E are per-chain
-// shared-memory tree sums.
+// and a data-dependent rejection loop, each a dependent chain that only
+// more resident warps and a shorter critical path can hide.
 //
-// A field beyond the shared memory one block may opt in to (227 KB on
-// the H100: a 256x128 lattice's links are 256 KB a chain) takes the second
-// branch: the chain's two planes live in its slice of a global scratch
-// buffer the wrapper allocates (work != nullptr), one chain per block,
-// updated in place with the same __syncthreads() between link groups;
-// only the reduction scratch stays in shared memory.  The sweeps are the
-// same device functions on the same planes, so both branches compute the
-// same bits.
+// The design (kWarp, fields up to 64 sites): a chain on one warp, or on an
+// aligned power-of-two share of one, two lanes a site (lanes =
+// min(32, next_pow2(2 Mx Mt))), up to four warps a block.  The field and
+// the chain's counter-word table (schwinger_sweep.cuh ChainWords) stay in
+// the chain's slice of shared memory for all n_steps draws.  Each lane's
+// link in each of the four link groups, with the links its staples read,
+// is fixed once a launch (LaneLink), so a group does no index arithmetic;
+// groups are separated by __syncwarp(); each link gets the lanes its group
+// leaves idle, which run its rejection rounds ahead, W at a time, with one
+// warp-wide ballot a batch (first_accepted); Q and E are shuffle
+// butterflies over the lanes that hold the sites, site s on lane s, adding
+// in the order of the block-wide tree so the sums keep its bits.
+//
+// Fields beyond 64 sites take a whole block a chain (one site a thread up
+// to 1024 sites, then several), with __syncthreads() between the groups
+// and the shared-memory tree for Q and E.  A field beyond the shared memory
+// one block may opt in to (227 KB on the H100: a 256x128 lattice's links
+// are 256 KB a chain) keeps its two planes in its slice of a global scratch
+// buffer the wrapper allocates (work != nullptr), updated in place; only
+// the word table and the reduction scratch stay in shared memory.  All
+// three run the same device functions on the same planes, so they compute
+// the same bits.
 
 #include <cuda_runtime.h>
 
@@ -38,55 +48,98 @@ struct SweepArgs {
   int C, Mx, Mt, n_steps, step_offset, n_overrelax, n_heatbath, k_rej;
   float beta;
   uint32_t seed1, seed2;
-  int tpc, cpb;
+  int lanes, cpb;
 };
 
-__global__ void schwinger_sweep_kernel(const float* __restrict__ theta_in,
-                                       float* __restrict__ theta_out,
-                                       float* __restrict__ qsum,
-                                       float* __restrict__ esum,
-                                       float* work, SweepArgs a) {
+template <bool kWarp>
+__global__ void __launch_bounds__(kWarp ? 128 : 1024)
+    schwinger_sweep_kernel(const float* __restrict__ theta_in,
+                           float* __restrict__ theta_out,
+                           float* __restrict__ qsum,
+                           float* __restrict__ esum, float* work,
+                           SweepArgs a) {
   extern __shared__ float smem[];
   const int nsites = a.Mx * a.Mt;
-  const int lc = threadIdx.x / a.tpc;
-  const int lt = threadIdx.x - lc * a.tpc;
+  const int G = a.lanes;
+  const int lc = threadIdx.x / G;
+  const int lt = threadIdx.x & (G - 1);
   const int chain = blockIdx.x * a.cpb + lc;
   const bool valid = chain < a.C;
-  // the planes in shared memory, or in global memory (one chain a block)
-  float* T = work != nullptr ? work + (size_t)chain * 2 * nsites
-                             : smem + (size_t)lc * 2 * nsites;
+  // the chain's slice: its word table, then its planes (unless they live
+  // in global memory, which only the block-wide form takes); the block's
+  // reduction scratch after all slices
+  const bool in_global = !kWarp && work != nullptr;
+  const int slice = SWEEP_WORDS + (in_global ? 0 : 2 * nsites);
+  float* mine = smem + (size_t)lc * slice;
+  float* T = mine + SWEEP_WORDS;
+  if constexpr (!kWarp) {
+    if (in_global) T = work + (size_t)chain * 2 * nsites;
+  }
   float* X = T + nsites;
-  float* red = work != nullptr ? smem : smem + (size_t)a.cpb * 2 * nsites;
+  float* red = smem + (size_t)a.cpb * slice;
+  // lanes holding the chain's sites for the sums
+  const int P = min(G, pow2_ceil(nsites));
 
+  const ChainWords cw =
+      chain_words(reinterpret_cast<uint32_t*>(mine), SWEEP_WORDS, a.seed2,
+                  (uint32_t)chain, lt, G);
   const float* src = theta_in + (size_t)chain * 2 * nsites;
-  for (int s = lt; s < nsites; s += a.tpc) {
+  for (int s = lt; s < nsites; s += G) {
     T[s] = valid ? src[2 * s] : 0.0f;
     X[s] = valid ? src[2 * s + 1] : 0.0f;
   }
-  __syncthreads();
+  chain_sync<kWarp>();
+
+  // the warp design's links and plaquettes of this lane, fixed for the
+  // launch
+  LaneLinks ll;
+  LanePlaq pl;
+  if constexpr (kWarp) {
+    ll = lane_links(lt, G, a.Mx, a.Mt, a.seed1);
+    pl = lane_plaq(lt & (P - 1), P, a.Mx, a.Mt);
+  }
 
   for (int st = 0; st < a.n_steps; ++st) {
-    sweep_step(T, X, a.Mx, a.Mt, lt, a.tpc, valid, a.seed1, a.seed2,
-               (uint32_t)chain, (uint32_t)(a.step_offset + st), a.beta,
-               a.n_overrelax, a.n_heatbath, a.k_rej);
+    const uint32_t step = (uint32_t)(a.step_offset + st);
+    if constexpr (kWarp) {
+      sweep_step_warp(T, X, ll, cw, step, a.beta, a.n_overrelax,
+                      a.n_heatbath, a.k_rej);
+    } else {
+      sweep_step_block(T, X, a.Mx, a.Mt, lt, G, a.seed1, cw, step, a.beta,
+                       a.n_overrelax, a.n_heatbath, a.k_rej);
+    }
     if (qsum != nullptr) {
       float v[2];
-      plaquette_sums(T, X, a.Mx, a.Mt, lt, a.tpc, &v[0], &v[1]);
-      chain_sum<2>(v, red, a.tpc);
+      if constexpr (kWarp) {
+        plaquette_sums_warp(T, X, pl, &v[0], &v[1]);
+      } else {
+        plaquette_sums(T, X, a.Mx, a.Mt, lt, P, &v[0], &v[1]);
+      }
+      chain_reduce<kWarp>(v, red, G, P);
       if (valid && lt == 0) {
         qsum[(size_t)st * a.C + chain] = v[0];
         if (esum != nullptr) esum[(size_t)st * a.C + chain] = v[1];
       }
+      // the next draw writes links the sums read
+      chain_sync<kWarp>();
     }
   }
 
   if (valid) {
     float* dst = theta_out + (size_t)chain * 2 * nsites;
-    for (int s = lt; s < nsites; s += a.tpc) {
+    for (int s = lt; s < nsites; s += G) {
       dst[2 * s] = T[s];
       dst[2 * s + 1] = X[s];
     }
   }
+}
+
+template <bool kWarp>
+cudaError_t allow_sweep_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(schwinger_sweep_kernel<kWarp>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace mlmc
@@ -98,28 +151,58 @@ extern "C" int mlmc_max_smem_optin(int device, int* out) {
 
 // theta_in/theta_out: [C, 2*Mx*Mt] f32 (may not alias); qsum/esum:
 // [n_steps, C] f32 or null; work: null, or [C, 2*Mx*Mt] f32 scratch for
-// the global-memory branch (then cpb = 1).  tpc threads per chain (a
-// power of two), cpb chains per block, smem bytes of dynamic shared
-// memory.
+// the global-memory branch (then one chain per block).  lanes per chain (a
+// power of two: <= 32 the warp design, else the block's threads), cpb
+// chains per block, smem bytes of dynamic shared memory.
 extern "C" int mlmc_schwinger_sweep(const float* theta_in, float* theta_out,
                                     float* qsum, float* esum, float* work,
                                     int C, int Mx,
                                     int Mt, int n_steps, int step_offset,
                                     int n_overrelax, int n_heatbath,
                                     int k_rej, float beta, uint32_t seed1,
-                                    uint32_t seed2, int tpc, int cpb,
+                                    uint32_t seed2, int lanes, int cpb,
                                     size_t smem, void* stream) {
   mlmc::SweepArgs a{C, Mx, Mt, n_steps, step_offset, n_overrelax,
-                    n_heatbath, k_rej, beta, seed1, seed2, tpc, cpb};
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mlmc::schwinger_sweep_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+                    n_heatbath, k_rej, beta, seed1, seed2, lanes, cpb};
   const int blocks = (C + cpb - 1) / cpb;
-  mlmc::schwinger_sweep_kernel<<<blocks, tpc * cpb, smem,
-                                 (cudaStream_t)stream>>>(
-      theta_in, theta_out, qsum, esum, work, a);
+  cudaError_t e;
+  if (lanes <= 32) {
+    e = mlmc::allow_sweep_smem<true>(smem);
+    if (e != cudaSuccess) return (int)e;
+    mlmc::schwinger_sweep_kernel<true><<<blocks, lanes * cpb, smem,
+                                         (cudaStream_t)stream>>>(
+        theta_in, theta_out, qsum, esum, work, a);
+  } else {
+    e = mlmc::allow_sweep_smem<false>(smem);
+    if (e != cudaSuccess) return (int)e;
+    mlmc::schwinger_sweep_kernel<false><<<blocks, lanes * cpb, smem,
+                                          (cudaStream_t)stream>>>(
+        theta_in, theta_out, qsum, esum, work, a);
+  }
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, local (spilled) bytes a thread and resident blocks
+// an SM of the launch with these threads and shared bytes (the warp design
+// when warp != 0): out[0..2].
+extern "C" int mlmc_schwinger_sweep_attrs(int threads, size_t smem, int warp,
+                                          int* out) {
+  cudaFuncAttributes fa{};
+  cudaError_t e;
+  if (warp) {
+    e = cudaFuncGetAttributes(&fa, mlmc::schwinger_sweep_kernel<true>);
+    if (e == cudaSuccess) e = mlmc::allow_sweep_smem<true>(smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[2], mlmc::schwinger_sweep_kernel<true>, threads, smem);
+  } else {
+    e = cudaFuncGetAttributes(&fa, mlmc::schwinger_sweep_kernel<false>);
+    if (e == cudaSuccess) e = mlmc::allow_sweep_smem<false>(smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[2], mlmc::schwinger_sweep_kernel<false>, threads, smem);
+  }
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  return (int)e;
 }

@@ -18,15 +18,25 @@
 //   Y = (Q_f^2 - Q_c^2) / 4 pi^2 and the accept bit.
 //
 // What bounds it on the H100: latency of a long dependent chain per step
-// (t_sub x 8 barriered quarter-sweeps, three barriered fill phases, four
-// per-chain reductions) with data-dependent rejection loops; the fields
-// are 128 + 32 floats per chain at the 8x8 headline, so neither bandwidth
-// nor shared memory is scarce.  The design keeps one chain's fine field,
-// trial field, coarse field and restricted coarse field in shared memory
-// for the whole launch (20 floats per coarse cell) and gives each coarse
-// cell one thread, so the fill's per-cell rejection loops run in parallel;
-// the special functions are the Abramowitz-Stegun forms of the reference
-// kernel so the arithmetic matches its plain version.
+// (t_sub x 8 quarter-sweeps, three fill phases, four per-chain reductions)
+// with data-dependent rejection loops; the fields are 128 + 32 floats per
+// chain at the 8x8 headline, so neither bandwidth nor shared memory is
+// scarce.  A chain keeps its fine field, trial field, coarse field,
+// restricted coarse field and counter-word table (TWOLEVEL_WORDS words) in
+// its slice of shared memory for the whole launch.
+//
+// The warp design (up to 64 coarse cells): a chain on one warp, or on an
+// aligned power-of-two share of one, two lanes a site or cell (lanes =
+// min(32, next_pow2(2 n))), __syncwarp() between phases, shuffle
+// butterflies for the sums (cell c on lane c, in the order of the
+// block-wide tree, so with its bits), and lanes a phase leaves idle run
+// rejection rounds ahead: four a link in the coarse sweeps, two a cell in
+// the BesselProduct draws, the two ExpCos fills of all cells side by side
+// (schwinger_sweep.cuh first_accepted); the halves of the warp share a
+// cell's cosines in phase D.  A larger field takes a block a chain, one
+// cell a thread, with __syncthreads() and the shared-memory tree.  The special functions
+// are the Abramowitz-Stegun forms of the reference kernel so the
+// arithmetic matches its plain version.
 
 #include <cuda_runtime.h>
 
@@ -39,7 +49,7 @@ struct TwoLevelArgs {
       k_rej_fill, k_rej_bessel, exact, small_beta, n_alpha;
   float beta, beta_c, two_beta, two_L, sigma_beta, sigma_half;
   uint32_t seed1, seed2;
-  int tpc, cpb;
+  int lanes, cpb;
 };
 
 __constant__ float I0_SMALL[7] = {1.0f, 3.5156229f, 3.0899424f, 1.2067492f,
@@ -63,63 +73,79 @@ __device__ __forceinline__ float kernel_log_i0(float x) {
   return zs - 0.5f * logf(zs) + logf(pl);
 }
 
-// neighbour A(J + dJ, I + dI) of cell c on the periodic coarse grid
-__device__ __forceinline__ float nb(const float* A, int J, int I, int dJ,
-                                    int dI, int Mxc, int Mtc) {
-  const int jj = J + dJ >= Mxc ? J + dJ - Mxc : J + dJ;
-  const int ii = I + dI >= Mtc ? I + dI - Mtc : I + dI;
-  return A[jj * Mtc + ii];
+// The per-draw constants of the BesselProduct two-piece Gaussian-envelope
+// rejection (pallas_schwinger_twolevel._bessel_draw)
+struct BesselSetup {
+  float sign, dx, log_C_p, log_C_m, p_right;
+};
+
+__device__ __forceinline__ BesselSetup bessel_setup(float x_p, float x_m,
+                                                    const TwoLevelArgs& a) {
+  BesselSetup b;
+  const float dx0 = x_m - x_p;
+  b.sign = dx0 < 0.0f ? -1.0f : 1.0f;
+  b.dx = fabsf(dx0);
+  const float dm = b.dx - TWO_PI_F;
+  b.log_C_p = a.two_L * (1.0f - b.dx * b.dx * FOURPI2_INV_F);
+  b.log_C_m = a.two_L * (1.0f - dm * dm * FOURPI2_INV_F);
+  const float d = fminf(fmaxf(b.log_C_p - b.log_C_m, -60.0f), 60.0f);
+  b.p_right = 1.0f / (1.0f + expf(-d));
+  return b;
 }
 
-// BesselProduct two-piece Gaussian-envelope rejection draw, truncated at
-// k rounds (pallas_schwinger_twolevel._bessel_draw); words from ctr0 + 1
-__device__ __forceinline__ bool bessel_draw(const CounterRng& rng,
-                                            uint32_t ctr0, float x_p,
-                                            float x_m, const TwoLevelArgs& a,
-                                            float* out) {
-  const float sb = a.sigma_beta;
-  const float dx0 = x_m - x_p;
-  const float sign = dx0 < 0.0f ? -1.0f : 1.0f;
-  const float dx = fabsf(dx0);
-  const float dm = dx - TWO_PI_F;
-  const float log_C_p = a.two_L * (1.0f - dx * dx * FOURPI2_INV_F);
-  const float log_C_m = a.two_L * (1.0f - dm * dm * FOURPI2_INV_F);
-  const float d = fminf(fmaxf(log_C_p - log_C_m, -60.0f), 60.0f);
-  const float p_right = 1.0f / (1.0f + expf(-d));
-  float x = 0.0f;
-  bool acc = false;
-  for (int r = 0; r < a.k_rej_bessel && !acc; ++r) {
-    float prop, log_rho, xi;
-    bool in_interval = true;
-    if (a.small_beta) {
-      const uint32_t c = ctr0 + 2u * (uint32_t)r;
-      prop = PI_F * (2.0f * rng.uniform(c + 1u) - 1.0f);
-      log_rho = kernel_log_i0(a.two_beta * cosf(0.5f * prop)) +
-                kernel_log_i0(a.two_beta * cosf(0.5f * (prop - dx))) -
-                a.two_L;
-      xi = rng.uniform(c + 2u);
-    } else {
-      const uint32_t c = ctr0 + 4u * (uint32_t)r;
-      const bool right = rng.uniform(c + 1u) < p_right;
-      const float mu = right ? 0.5f * dx : 0.5f * dx - PI_F;
-      const float a_min = right ? -PI_F + dx : -PI_F;
-      const float a_max = right ? PI_F : -PI_F + dx;
-      const float log_C = right ? log_C_p : log_C_m;
-      prop = mu + a.sigma_half * rng.normal(c + 2u);
-      in_interval = prop >= a_min && prop < a_max;
-      const float u = (prop - mu) / sb;
-      log_rho = kernel_log_i0(a.two_beta * cosf(0.5f * prop)) +
-                kernel_log_i0(a.two_beta * cosf(0.5f * (prop - dx))) -
-                log_C + u * u;
-      xi = rng.uniform(c + 4u);
-    }
-    if (in_interval && logf(xi) <= log_rho) {
-      x = prop;
-      acc = true;
-    }
+// Round r of the BesselProduct draw (words from ctr0 + 1: 2 a round in
+// the small-beta branch, 4 otherwise): writes the proposal, returns whether
+// it is accepted
+template <class Uniform>
+__device__ __forceinline__ bool bessel_round(const Uniform& uni,
+                                             uint32_t ctr0, int r,
+                                             const BesselSetup& b,
+                                             const TwoLevelArgs& a,
+                                             float* prop_out) {
+  float prop, log_rho, xi;
+  bool in_interval = true;
+  if (a.small_beta) {
+    const uint32_t c = ctr0 + 2u * (uint32_t)r;
+    prop = PI_F * (2.0f * uni(c + 1u) - 1.0f);
+    log_rho = kernel_log_i0(a.two_beta * cosf(0.5f * prop)) +
+              kernel_log_i0(a.two_beta * cosf(0.5f * (prop - b.dx))) -
+              a.two_L;
+    xi = uni(c + 2u);
+  } else {
+    const uint32_t c = ctr0 + 4u * (uint32_t)r;
+    const bool right = uni(c + 1u) < b.p_right;
+    const float mu = right ? 0.5f * b.dx : 0.5f * b.dx - PI_F;
+    const float a_min = right ? -PI_F + b.dx : -PI_F;
+    const float a_max = right ? PI_F : -PI_F + b.dx;
+    const float log_C = right ? b.log_C_p : b.log_C_m;
+    prop = mu + a.sigma_half * box_muller(uni(c + 2u), uni(c + 3u));
+    in_interval = prop >= a_min && prop < a_max;
+    const float u = (prop - mu) / a.sigma_beta;
+    log_rho = kernel_log_i0(a.two_beta * cosf(0.5f * prop)) +
+              kernel_log_i0(a.two_beta * cosf(0.5f * (prop - b.dx))) -
+              log_C + u * u;
+    xi = uni(c + 4u);
   }
-  *out = mod_2pi(sign * x + x_p);
-  return acc;
+  *prop_out = prop;
+  return in_interval && logf(xi) <= log_rho;
+}
+
+// A coarse cell c = (J, I) with its neighbours (J, I+1) and (J+1, I) on
+// the periodic coarse grid (nb's reads) and its counter hash
+struct Cell {
+  int c, r, d;
+  uint32_t h;
+};
+
+__device__ __forceinline__ Cell cell_at(int c, int Mxc, int Mtc,
+                                        uint32_t seed1) {
+  const int J = c / Mtc, I = c - J * Mtc;
+  Cell x;
+  x.c = c;
+  x.r = J * Mtc + (I + 1 >= Mtc ? I + 1 - Mtc : I + 1);
+  x.d = (J + 1 >= Mxc ? J + 1 - Mxc : J + 1) * Mtc + I;
+  x.h = site_hash(seed1, (uint32_t)c);
+  return x;
 }
 
 // x_p - x_m folded to [0, pi] with its sign (_approx_fold)
@@ -153,16 +179,18 @@ __device__ __forceinline__ void approx_params(float x0, float beta,
 }
 
 // large-beta Gaussian-mixture draw (_approx_bessel_draw), 3 words
-__device__ __forceinline__ float approx_bessel_draw(const CounterRng& rng,
+template <class Uniform>
+__device__ __forceinline__ float approx_bessel_draw(const Uniform& uni,
                                                     uint32_t ctr0, float x_p,
                                                     float x_m, float beta) {
   float x0, sign, N_p, s2p, s2m;
   approx_fold(x_p - x_m, &x0, &sign);
   approx_params(x0, beta, &N_p, &s2p, &s2m);
-  const bool is_main = rng.uniform(ctr0 + 1u) <= N_p;
+  const bool is_main = uni(ctr0 + 1u) <= N_p;
   const float sigma = is_main ? rsqrtf(s2p) : rsqrtf(fmaxf(s2m, 1e-20f));
   const float xshift = is_main ? 0.0f : PI_F;
-  const float x = sigma * rng.normal(ctr0 + 2u) + 0.5f * x0 - xshift;
+  const float x =
+      sigma * box_muller(uni(ctr0 + 2u), uni(ctr0 + 3u)) + 0.5f * x0 - xshift;
   return mod_2pi(sign * x + x_m);
 }
 
@@ -197,31 +225,46 @@ __device__ __forceinline__ float expcos_log_eval(float x, float beta,
 // site (j, i) = (2J + a, 2I + b) of coarse cell (J, I)
 enum { T00 = 0, T01, T10, T11, X00, X01, X10, X11 };
 
-__global__ void schwinger_twolevel_kernel(
-    const float* __restrict__ fine_in, const float* __restrict__ coarse_in,
-    const float* __restrict__ sf_in, const float* __restrict__ sq_in,
-    float* __restrict__ fine_out, float* __restrict__ coarse_out,
-    float* __restrict__ sf_out, float* __restrict__ sq_out,
-    float* __restrict__ y_out, float* __restrict__ qc_out,
-    float* __restrict__ ec_out, float* __restrict__ acc_out,
-    const float* __restrict__ alphas, TwoLevelArgs a) {
+template <bool kWarp>
+__global__ void __launch_bounds__(kWarp ? 128 : 1024)
+    schwinger_twolevel_kernel(
+        const float* __restrict__ fine_in,
+        const float* __restrict__ coarse_in,
+        const float* __restrict__ sf_in, const float* __restrict__ sq_in,
+        float* __restrict__ fine_out, float* __restrict__ coarse_out,
+        float* __restrict__ sf_out, float* __restrict__ sq_out,
+        float* __restrict__ y_out, float* __restrict__ qc_out,
+        float* __restrict__ ec_out, float* __restrict__ acc_out,
+        const float* __restrict__ alphas, TwoLevelArgs a) {
   extern __shared__ float smem[];
   const int Mxc = a.Mxc, Mtc = a.Mtc;
   const int n = Mxc * Mtc;
   const int Mt = 2 * Mtc;
-  const int lc = threadIdx.x / a.tpc;
-  const int lt = threadIdx.x - lc * a.tpc;
+  const int G = a.lanes;
+  const int lc = threadIdx.x / G;
+  const int lt = threadIdx.x & (G - 1);
   const int chain = blockIdx.x * a.cpb + lc;
   const bool valid = chain < a.C;
-  float* F = smem + (size_t)lc * 20 * n;  // current fine components [8][n]
-  float* Tr = F + 8 * n;                  // trial components [8][n]
-  float* Tc = Tr + 8 * n;                 // coarse links [n]
+  const uint32_t ch = (uint32_t)chain;
+  const int slice = TWOLEVEL_WORDS + 20 * n;
+  float* mine = smem + (size_t)lc * slice;
+  float* F = mine + TWOLEVEL_WORDS;  // current fine components [8][n]
+  float* Tr = F + 8 * n;             // trial components [8][n]
+  float* Tc = Tr + 8 * n;            // coarse links [n]
   float* Xc = Tc + n;
-  float* Rc = Xc + n;                     // restrict(current) [2][n]
-  float* red = smem + (size_t)a.cpb * 20 * n;
+  float* Rc = Xc + n;                // restrict(current) [2][n]
+  float* red = smem + (size_t)a.cpb * slice;
+  // lanes holding the chain's cells for the sums; this chain's lanes
+  const int P = min(G, pow2_ceil(n));
+  const unsigned chain_mask =
+      G >= 32 ? 0xffffffffu
+              : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
 
+  const ChainWords cw =
+      chain_words(reinterpret_cast<uint32_t*>(mine), TWOLEVEL_WORDS, a.seed2,
+                  ch, lt, G);
   // load: fine index ((j*Mt + i)*2 + mu), coarse ((J*Mtc + I)*2 + mu)
-  for (int c = lt; c < n; c += a.tpc) {
+  for (int c = lt; c < n; c += G) {
     const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
     for (int k = 0; k < 8; ++k) {
       const int mu = k >> 2, ja = (k >> 1) & 1, ib = k & 1;
@@ -234,7 +277,7 @@ __global__ void schwinger_twolevel_kernel(
   }
   float S_f = valid ? sf_in[chain] : 0.0f;
   float S_q = valid ? sq_in[chain] : 0.0f;
-  __syncthreads();
+  chain_sync<kWarp>();
 
   // counters of the fill stream
   const uint32_t n_bessel = a.exact ? (a.small_beta ? 2u : 4u) *
@@ -244,33 +287,60 @@ __global__ void schwinger_twolevel_kernel(
   const uint32_t ctr_e = ctr_u;                    // T10 words after u
   const uint32_t ctr_o = ctr_e + 3u * (uint32_t)a.k_rej_fill;
   const uint32_t ctr_acc = ctr_o + 3u * (uint32_t)a.k_rej_fill + 1u;
+  // lanes a cell in the BesselProduct draws (phase B), and a draw in the
+  // ExpCos fills (phase C, two draws a cell); the first item of this lane
+  // in each phase, fixed for the launch: its cell in A (its own), B, C and
+  // in the sums of D and E (lane mod P)
+  const int W_b = lanes_per_item(G, n);
+  const int W_e = lanes_per_item(G, 2 * n);
+  const int q_b = lt & (W_b - 1), q_e = lt & (W_e - 1);
+  const int kB = lt / W_b, kC = lt / W_e, kD = lt & (P - 1);
+  const Cell cA = cell_at(lt < n ? lt : 0, Mxc, Mtc, a.seed1);
+  const Cell cB = cell_at(kB < n ? kB : 0, Mxc, Mtc, a.seed1);
+  const Cell cC = cell_at(kC < n ? kC : (kC < 2 * n ? kC - n : 0), Mxc,
+                          Mtc, a.seed1);
+  const Cell cD = cell_at(kD < n ? kD : 0, Mxc, Mtc, a.seed1);
+  // the warp design's coarse links and plaquettes of this lane
+  LaneLinks ll;
+  LanePlaq pl;
+  if constexpr (kWarp) {
+    ll = lane_links(lt, G, Mxc, Mtc, a.seed1);
+    pl = lane_plaq(kD, P, Mxc, Mtc);
+  }
 
   for (int s = 0; s < a.n_steps; ++s) {
     const uint32_t base = (uint32_t)s * (uint32_t)(a.t_sub + 1);
 
     // ---- t_sub coarse heat-bath sweeps + per-sweep traces ----
     for (int t = 0; t < a.t_sub; ++t) {
-      sweep_step(Tc, Xc, Mxc, Mtc, lt, a.tpc, valid, a.seed1, a.seed2,
-                 (uint32_t)chain, base + (uint32_t)t, a.beta_c,
-                 a.n_overrelax_c, a.n_heatbath_c, a.k_rej);
       float v[2];
-      plaquette_sums(Tc, Xc, Mxc, Mtc, lt, a.tpc, &v[0], &v[1]);
-      chain_sum<2>(v, red, a.tpc);
+      if constexpr (kWarp) {
+        sweep_step_warp(Tc, Xc, ll, cw, base + (uint32_t)t, a.beta_c,
+                        a.n_overrelax_c, a.n_heatbath_c, a.k_rej);
+        plaquette_sums_warp(Tc, Xc, pl, &v[0], &v[1]);
+      } else {
+        sweep_step_block(Tc, Xc, Mxc, Mtc, lt, G, a.seed1, cw,
+                         base + (uint32_t)t, a.beta_c, a.n_overrelax_c,
+                         a.n_heatbath_c, a.k_rej);
+        plaquette_sums(Tc, Xc, Mxc, Mtc, lt, P, &v[0], &v[1]);
+      }
+      chain_reduce<kWarp>(v, red, G, P);
       if (valid && lt == 0) {
         const size_t o = (size_t)(s * a.t_sub + t) * a.C + chain;
         qc_out[o] = v[0];
         ec_out[o] = v[1];
       }
+      chain_sync<kWarp>();
     }
     const uint32_t stp = base + (uint32_t)a.t_sub;
-    float fails = 0.0f;
-
+    bool failed = false;
     // ---- A: prolongate + perimeter randomisation; restrict(current) ----
-    for (int c = lt; c < n && valid; c += a.tpc) {
-      const CounterRng rng(a.seed1, a.seed2, (uint32_t)c, (uint32_t)chain,
-                           stp);
-      const float u_t = PI_F * (2.0f * rng.uniform(1u) - 1.0f);
-      const float u_x = PI_F * (2.0f * rng.uniform(2u) - 1.0f);
+    for (int k = lt; k < n; k += G) {
+      const Cell cl = k == lt ? cA : cell_at(k, Mxc, Mtc, a.seed1);
+      const int c = cl.c;
+      const StreamUniform uni{step_base(cl.h, stp), cw};
+      const float u_t = PI_F * (2.0f * uni(1u) - 1.0f);
+      const float u_x = PI_F * (2.0f * uni(2u) - 1.0f);
       Tr[T00 * n + c] = mod_2pi(0.5f * Tc[c] + u_t);
       Tr[T01 * n + c] = mod_2pi(0.5f * Tc[c] - u_t);
       Tr[X00 * n + c] = mod_2pi(0.5f * Xc[c] + u_x);
@@ -278,157 +348,245 @@ __global__ void schwinger_twolevel_kernel(
       Rc[c] = mod_2pi(F[T00 * n + c] + F[T01 * n + c]);
       Rc[n + c] = mod_2pi(F[X00 * n + c] + F[X10 * n + c]);
     }
-    __syncthreads();
+    chain_sync<kWarp>();
 
-    // ---- B: interior vertical links (sum from BesselProduct) ----
-    for (int c = lt; c < n && valid; c += a.tpc) {
-      const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
-      const CounterRng rng(a.seed1, a.seed2, (uint32_t)c, (uint32_t)chain,
-                           stp);
+    // ---- B: interior vertical links (sum from BesselProduct), W_b lanes
+    // a cell running its rounds ahead ----
+    // every lane runs the same passes (first_accepted is warp-wide)
+    for (int k0 = 0; k0 < n; k0 += G / W_b) {
+      const int k = k0 + kB;
+      const bool active = k < n;
+      const Cell cl =
+          k0 == 0 ? cB : cell_at(active ? k : 0, Mxc, Mtc, a.seed1);
+      const int c = cl.c;
+      const StreamUniform uni{step_base(cl.h, stp), cw};
       const float t00 = Tr[T00 * n + c], t01 = Tr[T01 * n + c];
       const float x00 = Tr[X00 * n + c], x10 = Tr[X10 * n + c];
-      const float theta_p =
-          mod_2pi(t01 + nb(Tr + X00 * n, J, I, 0, 1, Mxc, Mtc) +
-                  nb(Tr + X10 * n, J, I, 0, 1, Mxc, Mtc) -
-                  nb(Tr + T01 * n, J, I, 1, 0, Mxc, Mtc));
-      const float theta_m =
-          mod_2pi(x00 + x10 + nb(Tr + T00 * n, J, I, 1, 0, Mxc, Mtc) - t00);
+      const float theta_p = mod_2pi(t01 + Tr[X00 * n + cl.r] +
+                                    Tr[X10 * n + cl.r] - Tr[T01 * n + cl.d]);
+      const float theta_m = mod_2pi(x00 + x10 + Tr[T00 * n + cl.d] - t00);
       float tt;
       if (a.exact) {
-        if (!bessel_draw(rng, 2u, theta_p, theta_m, a, &tt)) fails += 1.0f;
+        const BesselSetup bs = bessel_setup(theta_p, theta_m, a);
+        const auto round = [&](int r, float* prop) {
+          return bessel_round(uni, 2u, r, bs, a, prop);
+        };
+        float x;
+        if (!first_accepted(round, a.k_rej_bessel, W_b, q_b, active, &x) &&
+            active)
+          failed = true;
+        tt = mod_2pi(bs.sign * x + theta_p);
       } else {
-        tt = approx_bessel_draw(rng, 2u, theta_p, theta_m, a.beta);
+        tt = approx_bessel_draw(uni, 2u, theta_p, theta_m, a.beta);
       }
-      const float u = PI_F * (2.0f * rng.uniform(ctr_u) - 1.0f);
-      Tr[X01 * n + c] = mod_2pi(0.5f * tt + u);
-      Tr[X11 * n + c] = mod_2pi(0.5f * tt - u);
+      if (active && q_b == 0) {
+        const float u = PI_F * (2.0f * uni(ctr_u) - 1.0f);
+        Tr[X01 * n + c] = mod_2pi(0.5f * tt + u);
+        Tr[X11 * n + c] = mod_2pi(0.5f * tt - u);
+      }
     }
-    __syncthreads();
+    chain_sync<kWarp>();
 
-    // ---- C: interior horizontal links from ExpCos ----
-    for (int c = lt; c < n && valid; c += a.tpc) {
-      const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
-      const CounterRng rng(a.seed1, a.seed2, (uint32_t)c, (uint32_t)chain,
-                           stp);
-      const float t00 = Tr[T00 * n + c], t01 = Tr[T01 * n + c];
-      const float x00 = Tr[X00 * n + c], x01 = Tr[X01 * n + c];
-      const float x10 = Tr[X10 * n + c], x11 = Tr[X11 * n + c];
-      const float tp_e = mod_2pi(t00 + x01 - x00);
-      const float tm_e =
-          mod_2pi(x10 + nb(Tr + T00 * n, J, I, 1, 0, Mxc, Mtc) - x11);
-      float t10, t11;
-      if (!expcos_draw(rng, ctr_e, tp_e, tm_e, a.beta, a.k_rej_fill, &t10))
-        fails += 1.0f;
-      const float tp_o =
-          mod_2pi(t01 + nb(Tr + X00 * n, J, I, 0, 1, Mxc, Mtc) - x01);
-      const float tm_o =
-          mod_2pi(x11 + nb(Tr + T01 * n, J, I, 1, 0, Mxc, Mtc) -
-                  nb(Tr + X10 * n, J, I, 0, 1, Mxc, Mtc));
-      if (!expcos_draw(rng, ctr_o, tp_o, tm_o, a.beta, a.k_rej_fill, &t11))
-        fails += 1.0f;
-      Tr[T10 * n + c] = t10;
-      Tr[T11 * n + c] = t11;
+    // ---- C: interior horizontal links from ExpCos: draw d < n is cell
+    // d's T10, draw d >= n cell d - n's T11, W_e lanes a draw ----
+    for (int d0 = 0; d0 < 2 * n; d0 += G / W_e) {
+      const int d = d0 + kC;
+      const bool active = d < 2 * n;
+      const bool odd = d >= n;
+      const Cell cl = d0 == 0 ? cC
+                              : cell_at(!active ? 0 : (odd ? d - n : d), Mxc,
+                                        Mtc, a.seed1);
+      const int c = cl.c;
+      const StreamUniform uni{step_base(cl.h, stp), cw};
+      float tp, tm;
+      if (!odd) {
+        tp = mod_2pi(Tr[T00 * n + c] + Tr[X01 * n + c] - Tr[X00 * n + c]);
+        tm = mod_2pi(Tr[X10 * n + c] + Tr[T00 * n + cl.d] -
+                     Tr[X11 * n + c]);
+      } else {
+        tp = mod_2pi(Tr[T01 * n + c] + Tr[X00 * n + cl.r] -
+                     Tr[X01 * n + c]);
+        tm = mod_2pi(Tr[X11 * n + c] + Tr[T01 * n + cl.d] -
+                     Tr[X10 * n + cl.r]);
+      }
+      float tau, shift;
+      expcos_shift(tp, tm, a.beta, &tau, &shift);
+      const float sigma = expcos_sigma(tau);
+      const uint32_t ctr0 = odd ? ctr_o : ctr_e;
+      const auto round = [&](int r, float* prop) {
+        return expcos_round(uni, ctr0, r, tau, sigma, prop);
+      };
+      float x;
+      if (!first_accepted(round, a.k_rej_fill, W_e, q_e, active, &x) &&
+          active)
+        failed = true;
+      if (active && q_e == 0)
+        Tr[(odd ? T11 : T10) * n + c] = mod_2pi(x + shift);
     }
-    __syncthreads();
+    // a cell whose truncated rejection found no draw force-rejects
+    bool any_failed;
+    if constexpr (kWarp) {
+      any_failed = (__ballot_sync(0xffffffffu, failed) & chain_mask) != 0u;
+    } else {
+      any_failed = __syncthreads_or(failed) != 0;
+    }
+    chain_sync<kWarp>();
 
     // ---- D: the three dS terms ----
-    float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, fails};
-    for (int c = lt; c < n && valid; c += a.tpc) {
-      const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
+    float v[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (kWarp && a.exact && 2 * P <= G) {
+      // twice the lanes the cells need: lanes l and l + P share cell
+      // l's cosines, each taking one of every pair in the same instruction
+      // and the other by a shuffle, then both add them in the reference
+      // order (the same bits in both halves)
+      const int h = (lt & P) != 0;
+      const Cell& cl = cD;
+      const int c = cl.c;
       const float t00 = Tr[T00 * n + c], t01 = Tr[T01 * n + c];
       const float t10 = Tr[T10 * n + c], t11 = Tr[T11 * n + c];
       const float x00 = Tr[X00 * n + c], x01 = Tr[X01 * n + c];
       const float x10 = Tr[X10 * n + c], x11 = Tr[X11 * n + c];
-      const float sx00 = nb(Tr + X00 * n, J, I, 0, 1, Mxc, Mtc);
-      const float sx10 = nb(Tr + X10 * n, J, I, 0, 1, Mxc, Mtc);
-      const float st00 = nb(Tr + T00 * n, J, I, 1, 0, Mxc, Mtc);
-      const float st01 = nb(Tr + T01 * n, J, I, 1, 0, Mxc, Mtc);
-      // s_fine of the trial: the four sub-plaquettes of the cell
+      const float sx00 = Tr[X00 * n + cl.r];
+      const float sx10 = Tr[X10 * n + cl.r];
+      const float st00 = Tr[T00 * n + cl.d];
+      const float st01 = Tr[T01 * n + cl.d];
       const float P00 = t00 + x01 - t10 - x00;
       const float P01 = t01 + sx00 - t11 - x01;
       const float P10 = t10 + x11 - st00 - x10;
       const float P11 = t11 + sx10 - st01 - x11;
-      v[0] += (1.0f - cosf(P00)) + (1.0f - cosf(P01)) + (1.0f - cosf(P10)) +
-              (1.0f - cosf(P11));
-      // s_coarse of restrict(current) and of the coarse state
-      const float Pr = Rc[c] + nb(Rc + n, J, I, 0, 1, Mxc, Mtc) -
-                       nb(Rc, J, I, 1, 0, Mxc, Mtc) - Rc[n + c];
-      const float Pc = Tc[c] + nb(Xc, J, I, 0, 1, Mxc, Mtc) -
-                       nb(Tc, J, I, 1, 0, Mxc, Mtc) - Xc[c];
-      v[1] += 1.0f - cosf(Pr);
-      v[2] += 1.0f - cosf(Pc);
-      if (a.exact) {
-        // s_cond: plaquette staples + log of the normalisation series
-        const float phi_12 = x10 + st00;
-        const float phi_23 = st01 - sx10;
-        const float phi_34 = -t01 - sx00;
-        const float phi_41 = -t00 + x00;
-        const float th_1 = t10, th_2 = -x11, th_3 = -t11, th_4 = x01;
-        const float Phi = phi_12 + phi_23 + phi_34 + phi_41;
-        v[3] += cosf(th_1 - th_2 - phi_12) + cosf(th_2 - th_3 - phi_23) +
-                cosf(th_3 - th_4 - phi_34) + cosf(th_4 - th_1 - phi_41);
-        float series = 1.0f;
-        for (int k = 0; k < a.n_alpha; ++k)
-          series = series + alphas[k] * cosf((float)(k + 1) * Phi);
+      const float Pr = Rc[c] + Rc[n + cl.r] - Rc[cl.d] - Rc[n + c];
+      const float Pc = Tc[c] + Xc[cl.r] - Tc[cl.d] - Xc[c];
+      const float phi_12 = x10 + st00;
+      const float phi_23 = st01 - sx10;
+      const float phi_34 = -t01 - sx00;
+      const float phi_41 = -t00 + x00;
+      const float th_1 = t10, th_2 = -x11, th_3 = -t11, th_4 = x01;
+      const float Phi = phi_12 + phi_23 + phi_34 + phi_41;
+      // cos of (lo, hi): this lane's in one instruction, the other's by
+      // the shuffle
+      const auto cos_pair = [&](float lo, float hi, float* c_lo,
+                                float* c_hi) {
+        const float own = cosf(h ? hi : lo);
+        const float other = __shfl_xor_sync(0xffffffffu, own, P);
+        *c_lo = h ? other : own;
+        *c_hi = h ? own : other;
+      };
+      float c00, c01, c10, c11, cr, cc, k1, k2, k3, k4;
+      cos_pair(P00, P01, &c00, &c01);
+      cos_pair(P10, P11, &c10, &c11);
+      cos_pair(Pr, Pc, &cr, &cc);
+      cos_pair(th_1 - th_2 - phi_12, th_2 - th_3 - phi_23, &k1, &k2);
+      cos_pair(th_3 - th_4 - phi_34, th_4 - th_1 - phi_41, &k3, &k4);
+      float series = 1.0f;
+      for (int m = 0; m < a.n_alpha; m += 2) {
+        float ce, co;
+        cos_pair((float)(m + 1) * Phi, (float)(m + 2) * Phi, &ce, &co);
+        series = series + alphas[m] * ce;
+        if (m + 1 < a.n_alpha) series = series + alphas[m + 1] * co;
+      }
+      if (kD < n) {
+        v[0] += (1.0f - c00) + (1.0f - c01) + (1.0f - c10) + (1.0f - c11);
+        v[1] += 1.0f - cr;
+        v[2] += 1.0f - cc;
+        v[3] += k1 + k2 + k3 + k4;
         v[4] += logf(series);
-      } else {
-        // s_cond_approx: vertical-sum mixture + horizontal ExpCos terms
-        const float theta_p = mod_2pi(t01 + sx00 + sx10 - st01);
-        const float theta_m = mod_2pi(x00 + x10 + st00 - t00);
-        const float th_v = mod_2pi(x01 + x11);
-        v[3] += approx_log_eval(th_v, theta_p, theta_m, a.beta);
-        const float tp_e = mod_2pi(t00 + x01 - x00);
-        const float tm_e = mod_2pi(x10 + st00 - x11);
-        const float tp_o = mod_2pi(t01 + sx00 - x01);
-        const float tm_o = mod_2pi(x11 + st01 - sx10);
-        v[4] += expcos_log_eval(t10, a.beta, tp_e, tm_e) +
-                expcos_log_eval(t11, a.beta, tp_o, tm_o);
+      }
+    } else {
+      for (int k = kD; k < n; k += P) {
+        const Cell cl = k == kD ? cD : cell_at(k, Mxc, Mtc, a.seed1);
+        const int c = cl.c;
+        const float t00 = Tr[T00 * n + c], t01 = Tr[T01 * n + c];
+        const float t10 = Tr[T10 * n + c], t11 = Tr[T11 * n + c];
+        const float x00 = Tr[X00 * n + c], x01 = Tr[X01 * n + c];
+        const float x10 = Tr[X10 * n + c], x11 = Tr[X11 * n + c];
+        const float sx00 = Tr[X00 * n + cl.r];
+        const float sx10 = Tr[X10 * n + cl.r];
+        const float st00 = Tr[T00 * n + cl.d];
+        const float st01 = Tr[T01 * n + cl.d];
+        // s_fine of the trial: the four sub-plaquettes of the cell
+        const float P00 = t00 + x01 - t10 - x00;
+        const float P01 = t01 + sx00 - t11 - x01;
+        const float P10 = t10 + x11 - st00 - x10;
+        const float P11 = t11 + sx10 - st01 - x11;
+        v[0] += (1.0f - cosf(P00)) + (1.0f - cosf(P01)) +
+                (1.0f - cosf(P10)) + (1.0f - cosf(P11));
+        // s_coarse of restrict(current) and of the coarse state
+        const float Pr = Rc[c] + Rc[n + cl.r] - Rc[cl.d] - Rc[n + c];
+        const float Pc = Tc[c] + Xc[cl.r] - Tc[cl.d] - Xc[c];
+        v[1] += 1.0f - cosf(Pr);
+        v[2] += 1.0f - cosf(Pc);
+        if (a.exact) {
+          // s_cond: plaquette staples + log of the normalisation series
+          const float phi_12 = x10 + st00;
+          const float phi_23 = st01 - sx10;
+          const float phi_34 = -t01 - sx00;
+          const float phi_41 = -t00 + x00;
+          const float th_1 = t10, th_2 = -x11, th_3 = -t11, th_4 = x01;
+          const float Phi = phi_12 + phi_23 + phi_34 + phi_41;
+          v[3] += cosf(th_1 - th_2 - phi_12) + cosf(th_2 - th_3 - phi_23) +
+                  cosf(th_3 - th_4 - phi_34) + cosf(th_4 - th_1 - phi_41);
+          float series = 1.0f;
+          for (int m = 0; m < a.n_alpha; ++m)
+            series = series + alphas[m] * cosf((float)(m + 1) * Phi);
+          v[4] += logf(series);
+        } else {
+          // s_cond_approx: vertical-sum mixture + horizontal ExpCos terms
+          const float theta_p = mod_2pi(t01 + sx00 + sx10 - st01);
+          const float theta_m = mod_2pi(x00 + x10 + st00 - t00);
+          const float th_v = mod_2pi(x01 + x11);
+          v[3] += approx_log_eval(th_v, theta_p, theta_m, a.beta);
+          const float tp_e = mod_2pi(t00 + x01 - x00);
+          const float tm_e = mod_2pi(x10 + st00 - x11);
+          const float tp_o = mod_2pi(t01 + sx00 - x01);
+          const float tm_o = mod_2pi(x11 + st01 - sx10);
+          v[4] += expcos_log_eval(t10, a.beta, tp_e, tm_e) +
+                  expcos_log_eval(t11, a.beta, tp_o, tm_o);
+        }
       }
     }
-    chain_sum<6>(v, red, a.tpc);
+    chain_reduce<kWarp>(v, red, G, P);
     const float S_f_trial = a.beta * v[0];
     const float dS_coarse = a.beta_c * v[1] - a.beta_c * v[2];
     const float S_q_trial = a.exact ? -a.beta * v[3] + v[4] : -v[3] - v[4];
     const float dS = (S_f_trial - S_f) + dS_coarse + (S_q - S_q_trial);
-    const CounterRng rng0(a.seed1, a.seed2, 0u, (uint32_t)chain, stp);
-    const float u_acc = rng0.uniform(ctr_acc);
-    const bool accept = v[5] == 0.0f && (dS < 0.0f || u_acc < expf(-dS));
+    const StreamUniform uni0{step_base(site_hash(a.seed1, 0u), stp), cw};
+    const float u_acc = uni0(ctr_acc);
+    const bool accept = !any_failed && (dS < 0.0f || u_acc < expf(-dS));
     if (accept) {
-      for (int c = lt; c < n && valid; c += a.tpc)
+      for (int c = lt; c < n; c += G)
         for (int k = 0; k < 8; ++k) F[k * n + c] = Tr[k * n + c];
       S_f = S_f_trial;
       S_q = S_q_trial;
     }
-    __syncthreads();
+    chain_sync<kWarp>();
 
     // ---- E: Y = (Q_f^2 - Q_c^2) / 4 pi^2 ----
     float w[2] = {0.0f, 0.0f};
-    for (int c = lt; c < n && valid; c += a.tpc) {
-      const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
+    for (int k = kD; k < n; k += P) {
+      const Cell cl = k == kD ? cD : cell_at(k, Mxc, Mtc, a.seed1);
+      const int c = cl.c;
       const float t00 = F[T00 * n + c], t01 = F[T01 * n + c];
       const float t10 = F[T10 * n + c], t11 = F[T11 * n + c];
       const float x00 = F[X00 * n + c], x01 = F[X01 * n + c];
       const float x10 = F[X10 * n + c], x11 = F[X11 * n + c];
       w[0] += mod_2pi(t00 + x01 - t10 - x00) +
-              mod_2pi(t01 + nb(F + X00 * n, J, I, 0, 1, Mxc, Mtc) - t11 -
-                      x01) +
-              mod_2pi(t10 + x11 - nb(F + T00 * n, J, I, 1, 0, Mxc, Mtc) -
-                      x10) +
-              mod_2pi(t11 + nb(F + X10 * n, J, I, 0, 1, Mxc, Mtc) -
-                      nb(F + T01 * n, J, I, 1, 0, Mxc, Mtc) - x11);
-      w[1] += mod_2pi(Tc[c] + nb(Xc, J, I, 0, 1, Mxc, Mtc) -
-                      nb(Tc, J, I, 1, 0, Mxc, Mtc) - Xc[c]);
+              mod_2pi(t01 + F[X00 * n + cl.r] - t11 - x01) +
+              mod_2pi(t10 + x11 - F[T00 * n + cl.d] - x10) +
+              mod_2pi(t11 + F[X10 * n + cl.r] - F[T01 * n + cl.d] - x11);
+      w[1] += mod_2pi(Tc[c] + Xc[cl.r] - Tc[cl.d] - Xc[c]);
     }
-    chain_sum<2>(w, red, a.tpc);
+    chain_reduce<kWarp>(w, red, G, P);
     if (valid && lt == 0) {
       y_out[(size_t)s * a.C + chain] =
           FOURPI2_INV_F * (w[0] * w[0] - w[1] * w[1]);
       acc_out[(size_t)s * a.C + chain] = accept ? 1.0f : 0.0f;
     }
+    // the next step's sweeps write the coarse links E read
+    chain_sync<kWarp>();
   }
 
   if (valid) {
-    for (int c = lt; c < n; c += a.tpc) {
+    for (int c = lt; c < n; c += G) {
       const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
       for (int k = 0; k < 8; ++k) {
         const int mu = k >> 2, ja = (k >> 1) & 1, ib = k & 1;
@@ -446,12 +604,22 @@ __global__ void schwinger_twolevel_kernel(
   }
 }
 
+template <bool kWarp>
+cudaError_t allow_twolevel_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(schwinger_twolevel_kernel<kWarp>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 }  // namespace mlmc
 
 // fine: [C, 2*Mt*Mx], coarse: [C, 2*Mt*Mx/4], caches [C]; outputs as the
 // Pallas kernel: fine', coarse', S_fine', S_cond', y [n_steps, C],
 // qc/ec [n_steps*t_sub, C], acc [n_steps, C]; all f32, inputs and outputs
 // distinct.  alphas: n_alpha rescaled series coefficients (exact branch).
+// lanes per chain (a power of two: <= 32 the warp design, else the block's
+// threads), cpb chains per block, smem bytes of dynamic shared memory.
 extern "C" int mlmc_schwinger_twolevel(
     const float* fine_in, const float* coarse_in, const float* sf_in,
     const float* sq_in, float* fine_out, float* coarse_out, float* sf_out,
@@ -460,24 +628,55 @@ extern "C" int mlmc_schwinger_twolevel(
     int t_sub, int n_overrelax_c, int n_heatbath_c, int k_rej,
     int k_rej_fill, int k_rej_bessel, int exact, int small_beta, float beta,
     float beta_c, float two_L, float sigma_beta, float sigma_half,
-    uint32_t seed1, uint32_t seed2, int tpc, int cpb, size_t smem,
+    uint32_t seed1, uint32_t seed2, int lanes, int cpb, size_t smem,
     void* stream) {
   mlmc::TwoLevelArgs a{C,          Mx / 2,       Mt / 2,       n_steps,
                        t_sub,      n_overrelax_c, n_heatbath_c, k_rej,
                        k_rej_fill, k_rej_bessel, exact,        small_beta,
                        n_alpha,    beta,         beta_c,       2.0f * beta,
                        two_L,      sigma_beta,   sigma_half,   seed1,
-                       seed2,      tpc,          cpb};
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mlmc::schwinger_twolevel_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+                       seed2,      lanes,        cpb};
   const int blocks = (C + cpb - 1) / cpb;
-  mlmc::schwinger_twolevel_kernel<<<blocks, tpc * cpb, smem,
-                                    (cudaStream_t)stream>>>(
-      fine_in, coarse_in, sf_in, sq_in, fine_out, coarse_out, sf_out, sq_out,
-      y, qc, ec, acc, alphas, a);
+  cudaError_t e;
+  if (lanes <= 32) {
+    e = mlmc::allow_twolevel_smem<true>(smem);
+    if (e != cudaSuccess) return (int)e;
+    mlmc::schwinger_twolevel_kernel<true><<<blocks, lanes * cpb, smem,
+                                            (cudaStream_t)stream>>>(
+        fine_in, coarse_in, sf_in, sq_in, fine_out, coarse_out, sf_out,
+        sq_out, y, qc, ec, acc, alphas, a);
+  } else {
+    e = mlmc::allow_twolevel_smem<false>(smem);
+    if (e != cudaSuccess) return (int)e;
+    mlmc::schwinger_twolevel_kernel<false><<<blocks, lanes * cpb, smem,
+                                             (cudaStream_t)stream>>>(
+        fine_in, coarse_in, sf_in, sq_in, fine_out, coarse_out, sf_out,
+        sq_out, y, qc, ec, acc, alphas, a);
+  }
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, local (spilled) bytes a thread and resident blocks
+// an SM of the launch with these threads and shared bytes (the warp design
+// when warp != 0): out[0..2].
+extern "C" int mlmc_schwinger_twolevel_attrs(int threads, size_t smem,
+                                             int warp, int* out) {
+  cudaFuncAttributes fa{};
+  cudaError_t e;
+  if (warp) {
+    e = cudaFuncGetAttributes(&fa, mlmc::schwinger_twolevel_kernel<true>);
+    if (e == cudaSuccess) e = mlmc::allow_twolevel_smem<true>(smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[2], mlmc::schwinger_twolevel_kernel<true>, threads, smem);
+  } else {
+    e = cudaFuncGetAttributes(&fa, mlmc::schwinger_twolevel_kernel<false>);
+    if (e == cudaSuccess) e = mlmc::allow_twolevel_smem<false>(smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[2], mlmc::schwinger_twolevel_kernel<false>, threads, smem);
+  }
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  return (int)e;
 }

@@ -281,6 +281,19 @@ class MonteCarloTwoLevel:
         params.setdefault("x0", 0.0)
         return params
 
+    def _runs_fused(self, device: torch.device) -> bool:
+        """The fused kernel runs this configuration on ``device``: its
+        parameters are set and, on the card, the kernel holds the coarse
+        level (``qm_twolevel.kernel_takes``); a larger level runs through
+        the batched branch, decided from the shape before any launch.  The
+        CPU's plain version takes any size."""
+        if self._fused_params is None:
+            return False
+        if device.type != "cuda":
+            return True
+        from mlmcpathintegral_tpu_torch.ops.qm_twolevel import kernel_takes
+        return kernel_takes(self.coarse_action.lattice.M_lat)
+
     def _make_fused_chunk(self, t_sub: int, with_traces: bool = True):
         """``chunk(seed, carry, n_active) -> (carry, n_acc)``: one launch
         of the two-level kernel over chunk_size steps.  ``with_traces``
@@ -402,7 +415,7 @@ class MonteCarloTwoLevel:
         for the CPU ("cuda" runs the kernels, which take float32; "cpu"
         their plain versions, in any float dtype)."""
         device = _cuda.run_device(device)
-        if self._fused_params is not None:
+        if self._runs_fused(device):
             return self._evaluate_difference_fused(generator, n_chains,
                                                    dtype, device)
         t0 = time.monotonic()

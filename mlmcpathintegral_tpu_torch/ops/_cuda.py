@@ -53,8 +53,12 @@ _SIGNATURES = {
                        c_float, c_float, c_u32, c_u32, c_int, c_int, c_int,
                        c_size, c_ptr],
     "mlmc_gff_nbsum": [c_ptr, c_ptr, c_int, c_int, c_int, c_ptr],
+    "mlmc_schwinger_sweep_attrs": [c_int, c_size, c_int,
+                                   ctypes.POINTER(c_int)],
     "mlmc_schwinger_twolevel": [c_ptr] * 13 + [c_int] * 13 + [c_float] * 5
     + [c_u32, c_u32, c_int, c_int, c_size, c_ptr],
+    "mlmc_schwinger_twolevel_attrs": [c_int, c_size, c_int,
+                                      ctypes.POINTER(c_int)],
     "mlmc_rotor_sweep": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
                          c_int, c_int, c_float, c_u32, c_u32, c_int, c_int,
                          c_size, c_ptr],
@@ -234,10 +238,21 @@ def block_layout(n_items: int, target_threads: int = 64,
     return tpc, cpb
 
 
-#: the warp-per-chain kernels (K6, K7): warps a block, and the dynamic
+#: the warp-per-chain kernels (K3, K4, K6, K7): warps a block, and the dynamic
 #: shared memory a block stays within unless one chain needs more
 WARPS_PER_BLOCK = 4
 SMEM_DEFAULT = 48 * 1024
+
+
+def warp_chains(n_lanes: int, n_chains: int | None = None):
+    """(lanes per chain, chains per block) of a warp-per-chain launch:
+    ``warp_layout``'s share of a warp, up to WARPS_PER_BLOCK warps a block,
+    fewer where the chains run out first."""
+    lanes, per_warp = warp_layout(n_lanes)
+    warps = WARPS_PER_BLOCK
+    if n_chains is not None:
+        warps = max(1, min(warps, -(-n_chains // per_warp)))
+    return lanes, warps * per_warp
 
 
 def warp_layout(n_lanes: int):

@@ -137,6 +137,13 @@ def qm_twolevel_chain_plain(fine, x_coarse, s_cache, dt, seed, *, m0, mu2,
 MAX_SITES_PER_LANE = 32
 
 
+def kernel_takes(Mc: int) -> bool:
+    """Whether the kernel holds Mc coarse sites a chain (Mc <= 1024);
+    ``MonteCarloTwoLevel`` runs a larger level through its batched branch
+    on the card."""
+    return _cuda.next_pow2(-(-Mc // 32)) <= MAX_SITES_PER_LANE
+
+
 def qm_twolevel_launch(Mc: int, n_chains: int | None = None):
     """(lanes per chain, sites per lane, chains per block, dynamic shared
     bytes) of the kernel's launch: a chain on one warp, or on a
@@ -145,15 +152,12 @@ def qm_twolevel_launch(Mc: int, n_chains: int | None = None):
     (the kernel's template parameter); up to four warps a block; no shared
     memory."""
     sites = _cuda.next_pow2(-(-Mc // 32))
-    if sites > MAX_SITES_PER_LANE:
+    if not kernel_takes(Mc):
         raise NotImplementedError(
             f"the two-level kernel holds at most {32 * MAX_SITES_PER_LANE} "
             f"coarse sites a chain in registers; got Mc={Mc}")
-    lanes, per_warp = _cuda.warp_layout(-(-Mc // sites))
-    warps = _cuda.WARPS_PER_BLOCK
-    if n_chains is not None:
-        warps = max(1, min(warps, -(-n_chains // per_warp)))
-    return lanes, sites, warps * per_warp, 0
+    lanes, cpb = _cuda.warp_chains(-(-Mc // sites), n_chains)
+    return lanes, sites, cpb, 0
 
 
 def qm_twolevel_attrs(Mc: int, n_chains: int):

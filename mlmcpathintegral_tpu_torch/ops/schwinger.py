@@ -180,26 +180,67 @@ def schwinger_sweep_chain_plain(theta, seed, *, beta, Mt, Mx, n_steps,
     return out, qsum, esum
 
 
-def sweep_smem_bytes(Mt: int, Mx: int, n_chains: int | None = None):
-    """(threads per chain, chains per block, dynamic shared bytes) of the
-    sweep kernel's launch with the fields in shared memory."""
+#: the warp design's largest field: a chain of up to 64 sites on one warp
+#: (at most two sites a lane, so its Q/E sums add in the order of the
+#: block-wide tree and keep its bits)
+WARP_SITES_MAX = 64
+#: counter words a chain of the sweep kernel, and of the two-level kernel,
+#: keeps in shared memory (csrc/schwinger_sweep.cuh SWEEP_WORDS,
+#: TWOLEVEL_WORDS)
+SWEEP_WORDS = 96
+TWOLEVEL_WORDS = 320
+
+
+def warp_lanes(Mx: int, Mt: int):
+    """Lanes a chain of an Mx x Mt field gets in the warp design (two a
+    site, up to a warp), or None where the design does not take the field:
+    more than WARP_SITES_MAX sites, or a link group (rows or columns of one
+    parity) with more links than lanes, which the design's one link a lane
+    could not cover."""
     nsites = Mx * Mt
-    tpc, cpb = _cuda.block_layout(nsites)
-    if n_chains is not None:
-        cpb = max(1, min(cpb, n_chains))
-    return tpc, cpb, 4 * (cpb * 2 * nsites + 2 * tpc * cpb)
+    lanes = _cuda.warp_layout(2 * nsites)[0]
+    largest_group = max(-(-Mx // 2) * Mt, Mx * -(-Mt // 2))
+    if nsites > WARP_SITES_MAX or largest_group > lanes:
+        return None
+    return lanes
+
+
+def sweep_smem_bytes(Mt: int, Mx: int, n_chains: int | None = None):
+    """(lanes per chain, chains per block, dynamic shared bytes) of the
+    sweep kernel's launch with the fields in shared memory: the warp
+    design (``warp_lanes``) up to WARP_SITES_MAX sites, a chain on a warp
+    or on an aligned share of one, up to four warps a block; a larger field
+    on a whole block, one site a thread (up to 1024); each chain with its
+    SWEEP_WORDS-word table, the block's Q/E scratch beside them."""
+    nsites = Mx * Mt
+    if warp_lanes(Mx, Mt) is not None:
+        lanes, cpb = _cuda.warp_chains(2 * nsites, n_chains)
+        return lanes, cpb, 4 * cpb * (SWEEP_WORDS + 2 * nsites)
+    tpc, _ = _cuda.block_layout(nsites)
+    return tpc, 1, 4 * (SWEEP_WORDS + 2 * nsites + 2 * tpc)
 
 
 def sweep_launch(Mt: int, Mx: int, n_chains: int, smem_limit: int):
-    """(threads per chain, chains per block, dynamic shared bytes, fields
-    in global memory) of the sweep kernel's launch on a device that lets a
-    block opt in to ``smem_limit`` bytes: the fields in shared memory when
-    they fit, else in a global scratch buffer, one chain per block, with
-    only the Q/E reduction scratch in shared memory."""
-    tpc, cpb, smem = sweep_smem_bytes(Mt, Mx, n_chains)
+    """(lanes per chain, chains per block, dynamic shared bytes, branch) of
+    the sweep kernel's launch on a device that lets a block opt in to
+    ``smem_limit`` bytes.  branch: "warp" (the warp design), "block" (a
+    chain a block, the field in shared memory) or "global" (a field beyond
+    shared memory in a global scratch buffer, a chain a block, with only
+    the word table and the Q/E scratch in shared memory)."""
+    lanes, cpb, smem = sweep_smem_bytes(Mt, Mx, n_chains)
     if smem <= smem_limit:
-        return tpc, cpb, smem, False
-    return tpc, 1, 4 * 2 * tpc, True
+        return lanes, cpb, smem, "warp" if lanes <= 32 else "block"
+    return lanes, 1, 4 * (SWEEP_WORDS + 2 * lanes), "global"
+
+
+def sweep_attrs(Mt: int, Mx: int, n_chains: int):
+    """Registers a thread, spilled bytes a thread and resident blocks and
+    warps an SM of the sweep kernel at its launch for n_chains chains of
+    an Mx x Mt field (the card is needed)."""
+    lanes, cpb, smem, branch = sweep_launch(
+        Mt, Mx, n_chains, _cuda.max_smem_optin(0))
+    return _cuda.kernel_attrs("mlmc_schwinger_sweep_attrs", lanes * cpb,
+                              smem, int(branch == "warp"))
 
 
 def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
@@ -207,11 +248,11 @@ def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
     C = theta.shape[0]
     _cuda.require_cuda("theta", theta, (C, 2 * Mx * Mt))
     check_element_capacity(Mx * Mt, C)
-    tpc, cpb, smem, in_global = sweep_launch(
+    lanes, cpb, smem, branch = sweep_launch(
         Mt, Mx, C, _cuda.max_smem_optin(theta.device.index or 0))
     seed1, seed2 = seed_pair(seed)
     out = torch.empty_like(theta)
-    work = torch.empty_like(theta) if in_global else None
+    work = torch.empty_like(theta) if branch == "global" else None
     qsum = (torch.empty((n_steps, C), dtype=theta.dtype, device=theta.device)
             if want_q else None)
     esum = (torch.empty((n_steps, C), dtype=theta.dtype, device=theta.device)
@@ -223,7 +264,7 @@ def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
         esum.data_ptr() if esum is not None else None,
         work.data_ptr() if work is not None else None,
         C, Mx, Mt, n_steps, step_offset, n_overrelax, n_heatbath, k_rej,
-        float(beta), seed1, seed2, tpc, cpb, smem,
+        float(beta), seed1, seed2, lanes, cpb, smem,
         _cuda.stream_ptr(theta.device))
     _cuda.check_status(err, "schwinger_sweep kernel launch")
     SWEEP.launches += 1

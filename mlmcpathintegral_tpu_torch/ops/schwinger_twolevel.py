@@ -32,7 +32,8 @@ from mlmcpathintegral_tpu_torch.ops.rng import (
     CounterRng, check_element_capacity, element_ids, seed_pair,
 )
 from mlmcpathintegral_tpu_torch.ops.schwinger import (
-    _expcos_rejection, _expcos_shift, _first_accepted, _mod_2pi, _one_step,
+    TWOLEVEL_WORDS, _expcos_rejection, _expcos_shift, _first_accepted,
+    _mod_2pi, _one_step, warp_lanes,
 )
 
 PI = math.pi
@@ -461,14 +462,39 @@ def schwinger_twolevel_chain_plain(theta_fine, theta_coarse, s_fine_cache,
 
 
 def twolevel_smem_bytes(Mt: int, Mx: int, n_chains: int | None = None):
-    """(threads per chain, chains per block, dynamic shared bytes) of the
-    two-level kernel's launch: 20 floats per coarse cell per chain plus a
-    6-value reduction buffer."""
+    """(lanes per chain, chains per block, dynamic shared bytes) of the
+    two-level kernel's launch: the warp design (``schwinger.warp_lanes`` of
+    the coarse grid, up to WARP_SITES_MAX coarse cells), a chain on a warp
+    or on an aligned share of one, two lanes a cell, up to four warps a
+    block; a larger field on a whole block, one cell a thread; per chain 20
+    floats a coarse cell and the TWOLEVEL_WORDS-word table, in a block the
+    5-value reduction scratch beside them."""
     ncells = (Mx // 2) * (Mt // 2)
-    tpc, cpb = _cuda.block_layout(ncells)
-    if n_chains is not None:
-        cpb = max(1, min(cpb, n_chains))
-    return tpc, cpb, 4 * (cpb * 20 * ncells + 6 * tpc * cpb)
+    per_chain = 4 * (TWOLEVEL_WORDS + 20 * ncells)
+    if warp_lanes(Mx // 2, Mt // 2) is not None:
+        lanes, cpb = _cuda.warp_chains(2 * ncells, n_chains)
+        return lanes, cpb, cpb * per_chain
+    tpc, _ = _cuda.block_layout(ncells)
+    return tpc, 1, per_chain + 4 * 5 * tpc
+
+
+def twolevel_launch(Mt: int, Mx: int, n_chains: int):
+    """(lanes per chain, chains per block, dynamic shared bytes, branch) of
+    the two-level kernel's launch: branch "warp" (the warp design) or
+    "block" (a chain a block).  The fields
+    always live in shared memory: ``MonteCarloMultiLevel`` runs a level
+    whose block does not fit unfused."""
+    lanes, cpb, smem = twolevel_smem_bytes(Mt, Mx, n_chains)
+    return lanes, cpb, smem, "warp" if lanes <= 32 else "block"
+
+
+def twolevel_attrs(Mt: int, Mx: int, n_chains: int):
+    """Registers a thread, spilled bytes a thread and resident blocks and
+    warps an SM of the two-level kernel at its launch for n_chains chains
+    of an Mx x Mt fine field (the card is needed)."""
+    lanes, cpb, smem, branch = twolevel_launch(Mt, Mx, n_chains)
+    return _cuda.kernel_attrs("mlmc_schwinger_twolevel_attrs", lanes * cpb,
+                              smem, int(branch == "warp"))
 
 
 @functools.lru_cache(maxsize=32)
@@ -490,7 +516,7 @@ def _twolevel_cuda(theta_fine, theta_coarse, s_fine_cache, s_cond_cache,
     _cuda.require_cuda("s_fine_cache", s_fine_cache, (C,))
     _cuda.require_cuda("s_cond_cache", s_cond_cache, (C,))
     check_element_capacity((Mx // 2) * (Mt // 2), C)
-    tpc, cpb, smem = twolevel_smem_bytes(Mt, Mx, C)
+    lanes, cpb, smem, _ = twolevel_launch(Mt, Mx, C)
     _cuda.check_smem(smem, theta_fine.device,
                      f"the {Mx}x{Mt} two-level fields")
     exact, alphas, log_i0_2beta, sigma_beta = fill_constants(float(beta))
@@ -516,7 +542,7 @@ def _twolevel_cuda(theta_fine, theta_coarse, s_fine_cache, s_cond_cache,
         n_steps, t_sub, n_overrelax_c, n_heatbath_c, k_rej, k_rej_fill,
         k_rej_bessel, int(exact), int(small_beta), float(beta),
         float(beta_c), float(2.0 * log_i0_2beta), float(sigma_beta),
-        float(sigma_beta / math.sqrt(2.0)), seed1, seed2, tpc, cpb, smem,
+        float(sigma_beta / math.sqrt(2.0)), seed1, seed2, lanes, cpb, smem,
         _cuda.stream_ptr(theta_fine.device))
     _cuda.check_status(err, "schwinger_twolevel kernel launch")
     TWOLEVEL.launches += 1

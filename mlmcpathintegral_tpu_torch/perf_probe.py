@@ -2,7 +2,7 @@
 
     python -m mlmcpathintegral_tpu_torch.perf_probe [--out FILE]
         [--chunks 5] [--reps 3] [--trace FILE] [--cluster-chunks 1]
-        [--qm-only] [--gff-only]
+        [--qm-only] [--gff-only] [--main-only]
 
 It builds the ``bench_schwinger_mlmc`` configuration (8x8, both-direction
 coarsening, beta=4 nonperturbative, heat-bath coarse chains, 1024 chains,
@@ -19,7 +19,8 @@ f32, chunk 256), prepares its carries as ``evaluate`` does, and measures:
   scaling - ms per launch of the sweep-chain and two-level kernels at the
             main path's launch shapes for 256 .. 16384 chains (CUDA events
             around ``--reps`` launches after a warm one).  The fields are
-            the 1024-chain carries, tiled or cut to the chain count;
+            the 1024-chain carries, tiled or cut to the chain count
+            (``--main-only`` stops here);
   cluster - the same configuration with hybrid cluster coarse chains
             (``bench_schwinger_mlmc(coarse="cluster")``, the unfused path):
             ``--cluster-chunks`` chunks per level after a warm one, timed
@@ -827,6 +828,9 @@ def main(argv=None) -> int:
                     help="run the QM paths' probe (qm) alone")
     ap.add_argument("--gff-only", action="store_true",
                     help="run path E's probe (gff) alone")
+    ap.add_argument("--main-only", action="store_true",
+                    help="run the main path's probes (steady, scaling) "
+                         "alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe: no CUDA device")
@@ -862,12 +866,12 @@ def main(argv=None) -> int:
            "t_sub": list(mc._t_sub), "prepare_s": prepare_s,
            "steady": steady_state(mc, carries, carry_L, gen, args.chunks,
                                   trace),
-           "scaling": scaling(mc, carries, carry_L, args.reps),
-           "cluster": cluster_probe(
-               args.cluster_chunks,
-               trace.with_name(trace.stem + "_cluster.json")),
-           "qm": qm_probe(),
-           "gff": gff_probe()}
+           "scaling": scaling(mc, carries, carry_L, args.reps)}
+    if not args.main_only:
+        res.update(cluster=cluster_probe(
+                       args.cluster_chunks,
+                       trace.with_name(trace.stem + "_cluster.json")),
+                   qm=qm_probe(), gff=gff_probe())
     if args.accuracy_seeds:
         res["cluster_accuracy"] = cluster_accuracy(args.accuracy_seeds,
                                                    args.accuracy_configs)

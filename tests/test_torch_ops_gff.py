@@ -126,15 +126,19 @@ def test_sweep_launch_moves_large_fields_to_global_memory(launch, Mx,
                                                           n_chains,
                                                           in_global):
     tpc, cpb, smem, glob = launch(Mx, Mx, n_chains, H100_SMEM_OPTIN)
+    if launch is tps.sweep_launch:
+        # the Schwinger sweep names its branch: the warp design, a block,
+        # or global memory
+        glob = glob == "global"
     assert glob is in_global
     assert tpc & (tpc - 1) == 0 and tpc <= 1024 and smem <= H100_SMEM_OPTIN
     if launch is tps.sweep_launch:
-        # the shared-memory branch is the launch the kernel always made
+        # the shared-memory branch is the launch with the field in it
         full = tps.sweep_smem_bytes(Mx, Mx, n_chains)
         if glob:
             assert full[2] > H100_SMEM_OPTIN
-            # one chain a block, the Q/E reduction scratch alone
-            assert (cpb, smem) == (1, 4 * 2 * tpc)
+            # one chain a block, the word table and Q/E scratch alone
+            assert (cpb, smem) == (1, 4 * (tps.SWEEP_WORDS + 2 * tpc))
         else:
             assert (tpc, cpb, smem) == full
     else:

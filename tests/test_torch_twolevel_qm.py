@@ -319,3 +319,59 @@ def test_qm_paths_default_to_the_card():
                     lambda: quartic_twolevel(n_chains=4)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 run()
+
+
+class _Branch(Exception):
+    pass
+
+
+@pytest.mark.parametrize("M_lat, branch", [(64, "fused"),
+                                           (4096, "batched")])
+def test_fused_level_the_kernel_does_not_hold_runs_batched_on_the_card(
+        monkeypatch, M_lat, branch):
+    """On the card the fused kernel holds Mc <= 1024 coarse sites a chain:
+    a fused configuration at M_lat = 4096 (Mc = 2048) takes the batched
+    branch, decided from the shape before any launch, and one at M_lat =
+    64 the fused one.  The card is stubbed: run_device answers "cuda", the
+    two branches record themselves and stop, and the kernel's launch
+    layout records any call."""
+    from mlmcpathintegral_tpu_torch.mc import twolevel
+    from mlmcpathintegral_tpu_torch.ops import _cuda
+    from mlmcpathintegral_tpu_torch.ops import qm_twolevel as qtl
+
+    act = HarmonicOscillatorAction(Lattice1D(M_lat, 4.0), m0=1.0, mu2=1.0)
+    mc = MonteCarloTwoLevel(
+        act, qoi_x_squared,
+        coarse_sampler_factory=lambda a: HMCSampler(a, nt=20, dt=0.1,
+                                                    use_pallas=True),
+        conditioned_fine_action_factory=make_conditioned_fine_action,
+        n_burnin=8, n_samples=64, chunk_size=8, use_pallas=True)
+    assert mc._fused_params is not None
+    launches = []
+
+    def launch(*args, **kwargs):
+        launches.append(args)
+        raise _Branch("launch")
+
+    def fused(*args, **kwargs):
+        raise _Branch("fused")
+
+    def batched(*args, **kwargs):
+        raise _Branch("batched")
+
+    monkeypatch.setattr(_cuda, "run_device",
+                        lambda device="cuda": torch.device("cuda"))
+    monkeypatch.setattr(qtl, "qm_twolevel_launch", launch)
+    monkeypatch.setattr(MonteCarloTwoLevel, "_evaluate_difference_fused",
+                        fused)
+    monkeypatch.setattr(twolevel, "run_generators", batched)
+    with pytest.raises(_Branch) as taken:
+        mc.evaluate_difference(torch.Generator().manual_seed(1), n_chains=4)
+    assert str(taken.value) == branch
+    assert launches == []
+    # the CPU's plain version takes any size: the fused branch there
+    monkeypatch.setattr(_cuda, "run_device",
+                        lambda device="cuda": torch.device("cpu"))
+    with pytest.raises(_Branch, match="fused"):
+        mc.evaluate_difference(torch.Generator().manual_seed(1), n_chains=4,
+                               device="cpu")
