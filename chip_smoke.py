@@ -48,7 +48,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                chains, 128 steps) against it on the winding-sum trace
                (see ``departures``) and on the final paths (>= SHARE_MIN
                within 1e-4 mod 2 pi: the winding sum is blind to a change
-               of one site);
+               of one site), with the sha256 of the single sweep's and of
+               the B2 launch's outputs, the launch's layout (chains a
+               block, shared bytes, table words; a warp a chain),
+               registers a thread and resident warps an SM;
   7. rotor_cluster - the Wolff cluster kernel (csrc/rotor_cluster.cu)
                against its plain version at path A's launch shape (M=16,
                1024 chains, 5 updates; 64 steps compared, the 1-step launch
@@ -74,7 +77,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                at path D's launch (8192 chains, M=64, nt=20) and for the
                quartic one at path C's coarse launch (4096 chains, M=32,
                nt=100): >= SHARE_MIN of chains with x within TOL and the
-               same accept bit;
+               same accept bit; with each launch's sha256 of x_out and
+               accept, its layout (branch, lanes a chain, sites a lane,
+               chains a block, shared bytes), registers a thread and
+               resident warps an SM;
  12. hmc_chain - path D: bench.py's bench_harmonic unchanged
                (``perf_probe.harmonic_hmc``: M=64, T=4, m0=mu2=1, 8192
                chains, nt=20, prepare with autotune, a warm chunk, 8
@@ -702,11 +708,17 @@ def main() -> int:
     p = rotor.rotor_sweep_chain_plain(xB, (7, 9), kappa=kappa, M=B_M,
                                       n_steps=1)[0]
     r8["single_sweep_share_within_1e-4"] = angle_share(k, p, TOL)
+    r8["single_sweep_sha256"] = sha256_of([k])
     bkw = dict(kappa=kappa, M=B_M, n_steps=B_STEPS)
     k = rotor.rotor_sweep_chain(xB, (5, 6), **bkw)
     p, k8_rounds, plain_ms = tallied(
         lambda: rotor.rotor_sweep_chain_plain(xB, (5, 6), **bkw))
     torch.cuda.synchronize()
+    r8["main_launch_sha256"] = sha256_of(k)
+    r8["layout"] = dict(zip(
+        ("chains_per_block", "smem_bytes", "table_words"),
+        rotor.sweep_launch(B_M, B_C, _cuda.max_smem_optin(dev.index or 0))))
+    r8["attrs"] = rotor.sweep_attrs(B_M, B_C)
     # the winding sum is blind to a local change of one site, so the final
     # paths are held against each other too
     main_rep, main_ok = departures(rel_diff(k[1], p[1]) <= TOL,
@@ -725,7 +737,7 @@ def main() -> int:
     k8_row = dict(max_abs_err=main_rep["max_abs_err_while_together"],
                   ms=ms, plain_ms=plain_ms, **bound_ms_row(*work_k8(
                       B_C, B_M, B_STEPS, k8_rounds["expcos"])),
-                  rejection_rounds=k8_rounds)
+                  rejection_rounds=k8_rounds, attrs=r8["attrs"])
 
     # ---- 7. K7: rotor cluster chain -------------------------------------
     r7 = {}
@@ -942,7 +954,12 @@ def main() -> int:
                    "accept_rate": float(k[1].double().mean()),
                    "accept_rate_plain": float(pl[1].double().mean()),
                    "max_abs_err": float((k[0] - pl[0]).abs().max()),
-                   "plain_ms": plain_ms}
+                   "plain_ms": plain_ms, "sha256": sha256_of(k),
+                   "layout": dict(zip(
+                       ("branch", "lanes_per_chain", "sites_per_lane",
+                        "chains_per_block", "smem_bytes"),
+                       hmc.hmc_launch(M, C))),
+                   "attrs": hmc.hmc_attrs(M, C, kn)}
             k5_ok &= share >= SHARE_MIN
             if kn == ("harmonic" if name == "path_D" else "quartic"):
                 launch = lambda: hmc.hmc_trajectory(  # noqa: E731
@@ -965,7 +982,8 @@ def main() -> int:
                   plain_ms=rD["plain_ms"], **rD["bound"],
                   ms_path_C_coarse=r10["path_C_coarse:quartic"]["ms"],
                   bound_ms_path_C_coarse=r10["path_C_coarse:quartic"][
-                      "bound"]["bound_ms"])
+                      "bound"]["bound_ms"], attrs=rD["attrs"],
+                  attrs_path_C_coarse=r10["path_C_coarse:quartic"]["attrs"])
 
     # ---- 12. path D: single-level HMC through K5 -------------------------
     ops.reset_counters()

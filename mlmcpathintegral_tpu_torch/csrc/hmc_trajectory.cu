@@ -11,18 +11,37 @@
 // x once (3 M floats per chain); between, each of the nt + 1 force
 // evaluations is a few operations per site that need the neighbours'
 // positions from the step before, so the trajectory is nt dependent
-// kick/drift rounds.  The design keeps the path and momenta in shared
-// memory for the whole trajectory, one thread per site and one
-// power-of-two thread group per chain; at M <= 32 a group is inside one
-// warp, so its barriers are warp barriers and its two energy sums warp
-// shuffles (qm.cuh).  The step size is read from device memory, so a
-// sampler whose dt lives on the card launches without a host sync.
+// kick/drift rounds, and a round's time is its dependent chain and the
+// instructions it issues.
+//
+// The design (the warp branch, M up to 128 sites): a chain on one
+// warp, or on an aligned power-of-two share of one when M < 32, with x and
+// p in registers for the whole trajectory.  Lane l holds sites l + G k,
+// k < S (G lanes, G S = next_pow2(M), S a template parameter: qm.cuh
+// StridedRing), so a round is one register pass (the kick, then the
+// drift) whose neighbours come by shuffles from lanes fixed once a launch,
+// with no shared memory and no barrier.  The four energies are a tree
+// over a lane's slots and a shuffle butterfly, which add in the order of
+// the block branch's tree (thread t = site t) and leave the same bits in
+// every lane, so every lane takes the same accept decision and the kernel
+// keeps the block branch's bits.  The kind is a template parameter too.
+// Up to S = 4 no kind spills (ptxas, sm_90a); at S = 8 the rotor kind
+// does, and at S = 16 the quartic one.
+//
+// Longer paths take the block branch: one thread per site on a
+// power-of-two group of up to 1024 threads (several sites a thread
+// beyond), x and p in the chain's slice of shared memory, each kick and
+// drift a pass followed by a group barrier, the sums in the shared-memory
+// tree (rng.cuh chain_sum).  Both read the step size from device memory,
+// so a sampler whose dt lives on the card launches without a host sync.
 
 #include <cuda_runtime.h>
 
 #include "qm.cuh"
 
 namespace mlmc {
+
+constexpr int HMC_WARP_THREADS = 128;
 
 struct HmcArgs {
   int C, M, nt, kind;
@@ -31,29 +50,31 @@ struct HmcArgs {
   int tpc, cpb;
 };
 
-__device__ __forceinline__ float hmc_force(const HmcArgs& a, float x,
-                                          float xm, float xp) {
-  if (a.kind == 0) return a.q.kf * (a.q.c * x - xm - xp);
-  if (a.kind == 1) return a.q.force(x, xm, xp);
-  return a.q.kf * (sinf(x - xm) + sinf(x - xp));
+__device__ __forceinline__ float hmc_force(int kind, const Quartic& q,
+                                          float x, float xm, float xp) {
+  if (kind == 0) return q.kf * (q.c * x - xm - xp);
+  if (kind == 1) return q.force(x, xm, xp);
+  return q.kf * (sinf(x - xm) + sinf(x - xp));
 }
 
-__device__ __forceinline__ float hmc_density(const HmcArgs& a, float x,
-                                            float xm) {
-  if (a.kind == 0) {
+__device__ __forceinline__ float hmc_density(int kind, const Quartic& q,
+                                            float x, float xm) {
+  if (kind == 0) {
     const float dx = x - xm;
-    return dx * dx / a.q.a2 + a.q.mu2 * x * x;
+    return dx * dx / q.a2 + q.mu2 * x * x;
   }
-  if (a.kind == 1) return a.q.density(x, xm);
+  if (kind == 1) return q.density(x, xm);
   return 1.0f - cosf(x - xm);
 }
+
+// ---- the block branch ------------------------------------------------------
 
 // S of the chain's path x (every thread of the group gets it)
 __device__ __forceinline__ float hmc_action(const HmcArgs& a, const float* x,
                                            float* red, int lt) {
   float v = 0.0f;
   for (int m = lt; m < a.M; m += a.tpc) {
-    v += hmc_density(a, x[m], x[m == 0 ? a.M - 1 : m - 1]);
+    v += hmc_density(a.kind, a.q, x[m], x[m == 0 ? a.M - 1 : m - 1]);
   }
   return a.k_act * group_sum(v, red, a.tpc);
 }
@@ -64,17 +85,16 @@ __device__ __forceinline__ void hmc_kick(const HmcArgs& a, const float* x,
   for (int m = lt; m < a.M; m += a.tpc) {
     const float xm = x[m == 0 ? a.M - 1 : m - 1];
     const float xp = x[m == a.M - 1 ? 0 : m + 1];
-    p[m] = p[m] - h * hmc_force(a, x[m], xm, xp);
+    p[m] = p[m] - h * hmc_force(a.kind, a.q, x[m], xm, xp);
   }
 }
 
-__global__ void hmc_trajectory_kernel(const float* __restrict__ x_in,
-                                      const float* __restrict__ p_in,
-                                      const float* __restrict__ u_in,
-                                      const float* __restrict__ dt_in,
-                                      float* __restrict__ x_out,
-                                      bool* __restrict__ acc_out,
-                                      HmcArgs a) {
+__global__ void hmc_trajectory_block(const float* __restrict__ x_in,
+                                     const float* __restrict__ p_in,
+                                     const float* __restrict__ u_in,
+                                     const float* __restrict__ dt_in,
+                                     float* __restrict__ x_out,
+                                     bool* __restrict__ acc_out, HmcArgs a) {
   extern __shared__ float smem[];
   const int M = a.M;
   const int lc = threadIdx.x / a.tpc;
@@ -128,30 +148,161 @@ __global__ void hmc_trajectory_kernel(const float* __restrict__ x_in,
   }
 }
 
+// ---- the warp branch -------------------------------------------------------
+
+template <int K, int S>
+__device__ __forceinline__ float warp_action(const HmcArgs& a,
+                                            const StridedRing<S>& r,
+                                            const float (&x)[S]) {
+  float xm[S], xp[S], t[S];
+  r.neighbours(x, xm, xp);
+#pragma unroll
+  for (int k = 0; k < S; ++k) t[k] = hmc_density(K, a.q, x[k], xm[k]);
+  return a.k_act * r.total(t);
+}
+
+template <int K, int S>
+__device__ __forceinline__ void warp_kick(const HmcArgs& a,
+                                          const StridedRing<S>& r,
+                                          const float (&x)[S], float (&p)[S],
+                                          float h) {
+  ring_kick(r, x, p, h, [&](float xj, float xm, float xp) {
+    return hmc_force(K, a.q, xj, xm, xp);
+  });
+}
+
+// a.tpc is the chain's lanes G here
+template <int K, int S>
+__global__ void __launch_bounds__(HMC_WARP_THREADS)
+    hmc_trajectory_warp(const float* __restrict__ x_in,
+                        const float* __restrict__ p_in,
+                        const float* __restrict__ u_in,
+                        const float* __restrict__ dt_in,
+                        float* __restrict__ x_out, bool* __restrict__ acc_out,
+                        HmcArgs a) {
+  const int M = a.M;
+  const int G = a.tpc;
+  const int lc = threadIdx.x / G;
+  const int lt = threadIdx.x & (G - 1);
+  const int chain = blockIdx.x * (blockDim.x / G) + lc;
+  const bool valid = chain < a.C;
+  const StridedRing<S> r(G, lt, M);
+  const float* xsrc = x_in + (size_t)chain * M;
+  const float* psrc = p_in + (size_t)chain * M;
+
+  float x[S], p[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool real = valid && r.real(k);
+    x[k] = real ? xsrc[lt + G * k] : 0.0f;
+    p[k] = real ? psrc[lt + G * k] : 0.0f;
+  }
+  const float dt = dt_in[0];
+  const float hdt = 0.5f * dt;
+
+  const float T_cur = 0.5f * r.sum_sq(p);
+  const float S_cur = warp_action<K>(a, r, x);
+
+  warp_kick<K>(a, r, x, p, hdt);
+  drift(x, p, dt);
+  for (int k = 0; k < a.nt - 1; ++k) {
+    warp_kick<K>(a, r, x, p, dt);
+    drift(x, p, dt);
+  }
+  warp_kick<K>(a, r, x, p, hdt);
+
+  const float T_new = 0.5f * r.sum_sq(p);
+  const float S_new = warp_action<K>(a, r, x);
+  const float dH = (S_new - S_cur) + (T_new - T_cur);
+  const float u = valid ? u_in[chain] : 1.0f;
+  const bool accept = dH < 0.0f || u < expf(-dH);
+
+  if (valid) {
+    float* dst = x_out + (size_t)chain * M;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (r.real(k)) {
+        const int m = lt + G * k;
+        dst[m] = accept ? x[k] : xsrc[m];
+      }
+    }
+    if (lt == 0) acc_out[chain] = accept;
+  }
+}
+
+template <int K>
+static const void* warp_kernel_of_kind(int sites) {
+  switch (sites) {
+    case 1: return (const void*)hmc_trajectory_warp<K, 1>;
+    case 2: return (const void*)hmc_trajectory_warp<K, 2>;
+    case 4: return (const void*)hmc_trajectory_warp<K, 4>;
+    default: return nullptr;
+  }
+}
+
+// the kernel of a launch: the warp branch's for `sites` sites a lane (1, 2
+// or 4), the block branch's for sites = 0; null otherwise
+static const void* kernel_for(int kind, int sites) {
+  if (sites == 0) return (const void*)hmc_trajectory_block;
+  if (kind == 0) return warp_kernel_of_kind<0>(sites);
+  if (kind == 1) return warp_kernel_of_kind<1>(sites);
+  if (kind == 2) return warp_kernel_of_kind<2>(sites);
+  return nullptr;
+}
+
 }  // namespace mlmc
 
 // x/p/x_out: [C, M] f32 (x_out may not alias x); u: [C]; dt: one f32 in
 // device memory; acc: [C] bool.  kind 0 harmonic, 1 quartic, 2 rotor; the
-// constants are folded on the host (ops/hmc.py).  tpc threads per chain (a
-// power of two), cpb chains per block, smem bytes of dynamic shared memory.
+// constants are folded on the host (ops/hmc.py).  The warp branch (sites
+// > 0): lanes per chain (a power of two <= 32) with `sites` sites a lane
+// (1, 2 or 4; lanes * sites = next_pow2(M)), cpb chains a block, no
+// shared memory.
+// The block branch (sites = 0): lanes = threads per chain (a power of
+// two), cpb chains per block, smem bytes of dynamic shared memory.
 extern "C" int mlmc_hmc_trajectory(const float* x, const float* p,
                                    const float* u, const float* dt,
                                    float* x_out, bool* acc, int C, int M,
                                    int nt, int kind, float kf, float c,
                                    float al, float x0, float a2, float mu2,
-                                   float m0, float hl, float k_act, int tpc,
-                                   int cpb, size_t smem, void* stream) {
+                                   float m0, float hl, float k_act, int lanes,
+                                   int cpb, int sites, size_t smem,
+                                   void* stream) {
   mlmc::HmcArgs a{C, M, nt, kind, {kf, c, al, x0, a2, mu2, m0, hl},
-                  k_act, tpc, cpb};
+                  k_act, lanes, cpb};
+  const void* kernel = mlmc::kernel_for(kind, sites);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        mlmc::hmc_trajectory_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (C + cpb - 1) / cpb;
-  mlmc::hmc_trajectory_kernel<<<blocks, tpc * cpb, smem,
-                                (cudaStream_t)stream>>>(x, p, u, dt, x_out,
-                                                        acc, a);
-  return (int)cudaGetLastError();
+  void* args[] = {&x, &p, &u, &dt, &x_out, &acc, &a};
+  cudaError_t e = cudaLaunchKernel(kernel, dim3((C + cpb - 1) / cpb),
+                                   dim3(lanes * cpb), args, smem,
+                                   (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// Registers a thread, local (spilled) bytes a thread and resident blocks
+// an SM of the launch's kernel (kind, sites as above) at `threads` a
+// block with smem bytes of dynamic shared memory: out[0..2].
+extern "C" int mlmc_hmc_trajectory_attrs(int threads, int kind, int sites,
+                                         size_t smem, int* out) {
+  const void* kernel = mlmc::kernel_for(kind, sites);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa{};
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess && smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      threads, smem);
+  }
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  return (int)e;
 }

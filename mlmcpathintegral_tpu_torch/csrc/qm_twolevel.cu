@@ -23,9 +23,10 @@
 // one when Mc < 32, several chains a warp) and holds everything in
 // registers: lane l keeps sites l S .. l S + S - 1 of the coarse path, the
 // trajectory, its momenta and both fine planes, S a template parameter
-// (Mc / 32 rounded up to a power of two).  A leapfrog round reads the two
-// neighbours across lane boundaries with one shuffle each way and touches
-// no memory; the lanes and wrap of those shuffles are fixed once a launch.
+// (Mc / 32 rounded up to a power of two; qm.cuh Ring).  A leapfrog round
+// reads the two neighbours across lane boundaries with one shuffle each
+// way and touches no memory; the lanes and wrap of those shuffles are
+// fixed once a launch.
 // The sums are shuffle butterflies, which leave the same bits in every
 // lane, so each lane takes the same accept decisions.  The coarse action
 // of the current path is carried from one trajectory's test to the next
@@ -52,54 +53,6 @@ struct QmTwolevelArgs {
   float inv_M, inv_Mc;
   uint32_t seed1, seed2;
   int lanes;  // lanes per chain: a power of two <= 32
-};
-
-// The ring of a chain's Mc sites on its lanes: lane l holds sites l S + k,
-// k < S, of which the first n are real (n < S only on the last lane, and 0
-// on idle lanes).  Every lane of the warp must call the shuffling members.
-template <int S>
-struct Ring {
-  int n;     // real sites of this lane
-  int G;     // lanes per chain
-  int prev;  // lane holding the site before this lane's first
-  int next;  // lane holding the site after this lane's last real one
-
-  // values at j-1 (vm) and j+1 (vp) of this lane's sites j
-  __device__ __forceinline__ void neighbours(const float (&v)[S],
-                                             float (&vm)[S],
-                                             float (&vp)[S]) const {
-    float last = v[S - 1];
-#pragma unroll
-    for (int k = 0; k < S - 1; ++k) {
-      if (k == n - 1) last = v[k];
-    }
-    const float from_prev = __shfl_sync(0xffffffffu, last, prev, G);
-    const float from_next = __shfl_sync(0xffffffffu, v[0], next, G);
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      vm[k] = k == 0 ? from_prev : v[k > 0 ? k - 1 : 0];
-      vp[k] = (k == S - 1 || k == n - 1) ? from_next
-                                         : v[k < S - 1 ? k + 1 : k];
-    }
-  }
-
-  // sum over the chain of t over this lane's real sites, in site order
-  // within the lane, then the butterfly
-  __device__ __forceinline__ float total(const float (&t)[S]) const {
-    float v = 0.0f;
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      if (k < n) v += t[k];
-    }
-    return lanes_sum(v, G);
-  }
-
-  __device__ __forceinline__ float sum_sq(const float (&v)[S]) const {
-    float t[S];
-#pragma unroll
-    for (int k = 0; k < S; ++k) t[k] = v[k] * v[k];
-    return total(t);
-  }
 };
 
 template <int S>
@@ -140,19 +93,9 @@ __device__ __forceinline__ void coarse_kick(const QmTwolevelArgs& a,
                                             const Ring<S>& r,
                                             const float (&x)[S],
                                             float (&p)[S], float h) {
-  float xm[S], xp[S];
-  r.neighbours(x, xm, xp);
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    p[k] = p[k] - h * a.coarse.force(x[k], xm[k], xp[k]);
-  }
-}
-
-template <int S>
-__device__ __forceinline__ void drift(float (&x)[S], const float (&p)[S],
-                                      float dt) {
-#pragma unroll
-  for (int k = 0; k < S; ++k) x[k] = x[k] + dt * p[k];
+  ring_kick(r, x, p, h, [&](float xj, float xm, float xp) {
+    return a.coarse.force(xj, xm, xp);
+  });
 }
 
 template <int S>

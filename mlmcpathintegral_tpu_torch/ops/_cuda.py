@@ -62,12 +62,15 @@ _SIGNATURES = {
     "mlmc_rotor_sweep": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
                          c_int, c_int, c_float, c_u32, c_u32, c_int, c_int,
                          c_size, c_ptr],
+    "mlmc_rotor_sweep_attrs": [c_int, c_size, ctypes.POINTER(c_int)],
     "mlmc_rotor_cluster": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
                            c_float, c_u32, c_u32, c_int, c_int, c_size,
                            c_ptr],
     "mlmc_rotor_cluster_attrs": [c_int, c_size, ctypes.POINTER(c_int)],
     "mlmc_hmc_trajectory": [c_ptr] * 6 + [c_int] * 4 + [c_float] * 9
-    + [c_int, c_int, c_size, c_ptr],
+    + [c_int, c_int, c_int, c_size, c_ptr],
+    "mlmc_hmc_trajectory_attrs": [c_int, c_int, c_int, c_size,
+                                  ctypes.POINTER(c_int)],
     "mlmc_qm_twolevel": [c_ptr] * 12 + [c_int] * 6 + [c_float] * 17
     + [c_u32, c_u32, c_int, c_int, c_int, c_ptr],
     "mlmc_qm_twolevel_attrs": [c_int, c_int, ctypes.POINTER(c_int)],
@@ -238,7 +241,7 @@ def block_layout(n_items: int, target_threads: int = 64,
     return tpc, cpb
 
 
-#: the warp-per-chain kernels (K3, K4, K6, K7): warps a block, and the dynamic
+#: the warp-per-chain kernels (K3-K8): warps a block, and the dynamic
 #: shared memory a block stays within unless one chain needs more
 WARPS_PER_BLOCK = 4
 SMEM_DEFAULT = 48 * 1024

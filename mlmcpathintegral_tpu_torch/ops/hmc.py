@@ -130,14 +130,38 @@ def hmc_trajectory_plain(x, p, u, dt, *, kind, m0, mu2=0.0, lam=0.0, x0=0.0,
     return torch.where(accept[:, None], xt, x), accept
 
 
-def hmc_smem_bytes(M: int, n_chains: int | None = None):
-    """(threads per chain, chains per block, dynamic shared bytes) of the
-    kernel's launch: the position and momentum of every site and a
-    reduction slot per thread."""
+#: the warp branch's most sites a lane: x and p of up to 32 SITES_MAX
+#: sites stay in registers with no kind spilling (ptxas on sm_90a: at 8
+#: sites a lane the rotor kind spills)
+SITES_MAX = 4
+
+
+def hmc_launch(M: int, n_chains: int | None = None):
+    """(branch, lanes per chain, sites a lane, chains per block, dynamic
+    shared bytes) of the trajectory kernel's launch, from the shape alone.
+    "warp": a chain on one warp, or on an aligned power-of-two share of one
+    when M < 32, lane l holding sites l + lanes k of x and p in registers
+    (lanes x sites = next_pow2(M)), up to four warps a block, fewer where
+    the chains run out first; up to 32 SITES_MAX sites.  "block": a chain
+    on a power-of-two group of up to 1024 threads, x, p and a reduction
+    slot a thread in shared memory (the design before the warp branch)."""
+    n = _cuda.next_pow2(M)
+    if n <= 32 * SITES_MAX:
+        lanes, cpb = _cuda.warp_chains(M, n_chains)
+        return "warp", lanes, n // lanes, cpb, 0
     tpc, cpb = _cuda.block_layout(M)
     if n_chains is not None:
         cpb = max(1, min(cpb, n_chains))
-    return tpc, cpb, 4 * (cpb * 2 * M + tpc * cpb)
+    return "block", tpc, 0, cpb, 4 * (cpb * 2 * M + tpc * cpb)
+
+
+def hmc_attrs(M: int, n_chains: int, kind: str):
+    """Registers a thread, spilled bytes a thread and resident blocks and
+    warps an SM of the trajectory kernel at its launch for [n_chains, M]
+    (the card is needed)."""
+    _, lanes, sites, cpb, smem = hmc_launch(M, n_chains)
+    return _cuda.kernel_attrs("mlmc_hmc_trajectory_attrs", lanes * cpb,
+                              KINDS[kind], sites, smem)
 
 
 def hmc_trajectory(x, p, u, dt, *, kind, m0, mu2=0.0, lam=0.0, x0=0.0,
@@ -158,7 +182,7 @@ def hmc_trajectory(x, p, u, dt, *, kind, m0, mu2=0.0, lam=0.0, x0=0.0,
     _cuda.require_cuda("u", u, (C,))
     dt = torch.as_tensor(dt, dtype=torch.float32, device=x.device)
     _cuda.require_cuda("dt", dt.reshape(1), (1,))
-    tpc, cpb, smem = hmc_smem_bytes(M, C)
+    _, lanes, sites, cpb, smem = hmc_launch(M, C)
     _cuda.check_smem(smem, x.device, f"the M={M} HMC path")
     a, m0, mu2, lam = float(a_lat), float(m0), float(mu2), float(lam)
     if kind == "harmonic":
@@ -173,7 +197,8 @@ def hmc_trajectory(x, p, u, dt, *, kind, m0, mu2=0.0, lam=0.0, x0=0.0,
         x.data_ptr(), p.data_ptr(), u.data_ptr(), dt.data_ptr(),
         out.data_ptr(), acc.data_ptr(), C, M, int(nt), KINDS[kind],
         m0 / a, 2.0 + a * a * mu2, a * lam, float(x0), a * a, mu2, m0,
-        0.5 * lam, k_act, tpc, cpb, smem, _cuda.stream_ptr(x.device))
+        0.5 * lam, k_act, lanes, cpb, sites, smem,
+        _cuda.stream_ptr(x.device))
     _cuda.check_status(err, "hmc_trajectory kernel launch")
     HMC.launches += 1
     return out, acc

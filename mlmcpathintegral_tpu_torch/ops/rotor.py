@@ -45,7 +45,9 @@ from mlmcpathintegral_tpu_torch.ops import _cuda
 from mlmcpathintegral_tpu_torch.ops.rng import (
     CounterRng, check_element_capacity, element_ids, seed_pair,
 )
-from mlmcpathintegral_tpu_torch.ops.schwinger import _expcos_draw, _mod_2pi
+from mlmcpathintegral_tpu_torch.ops.schwinger import (
+    SWEEP_WORDS, _expcos_draw, _mod_2pi,
+)
 
 PI = math.pi
 
@@ -112,14 +114,41 @@ def _check_even(M):
         raise ValueError("checkerboard sweep needs even M_lat")
 
 
-def sweep_smem_bytes(M: int, n_chains: int | None = None):
-    """(threads per chain, chains per block, dynamic shared bytes) of the
-    sweep kernel's launch: one thread per site pair, the path and a
-    reduction slot per thread in shared memory."""
-    tpc, cpb = _cuda.block_layout(M // 2)
-    if n_chains is not None:
-        cpb = max(1, min(cpb, n_chains))
-    return tpc, cpb, 4 * (cpb * M + tpc * cpb)
+#: the pending-draw queue of a chain (csrc/rotor_sweep.cu ROTOR_QUEUE: a
+#: chunk of 4 draws on each of 32 lanes), 6 words an item
+QUEUE = 128
+
+
+def sweep_launch(M: int, n_chains: int, smem_limit: int):
+    """(chains per block, dynamic shared bytes, table words) of the sweep
+    kernel's launch, from the shape and the device's opt-in limit
+    ``smem_limit``: a chain on one warp, its slice of shared memory holding
+    the word table (SWEEP_WORDS; one heat-bath sweep at k_rej 8 reads
+    counters up to 48), the path, and one over the other the queue of pending
+    draws (QUEUE items of 6 words) and, when the winding sum's tree has
+    more than one virtual thread a lane (next_pow2(M/2) > 32), a scratch
+    of that tree's threads; up to four warps a block, fewer where the
+    chains or 48 KB run out first.  A path whose slice with the table would
+    pass the limit keeps no table (its words are hashed where they are
+    drawn)."""
+    _check_even(M)
+    tpc = min(1024, _cuda.next_pow2(M // 2))
+    pool = max(tpc if tpc > 32 else 0, 6 * QUEUE)
+    words = SWEEP_WORDS
+    if 4 * (words + M + pool) > smem_limit:
+        words = 0
+    chain_bytes = 4 * (words + M + pool)
+    cpb = max(1, min(_cuda.WARPS_PER_BLOCK,
+                     _cuda.SMEM_DEFAULT // chain_bytes, n_chains))
+    return cpb, chain_bytes * cpb, words
+
+
+def sweep_attrs(M: int, n_chains: int):
+    """Registers a thread, spilled bytes a thread and resident blocks and
+    warps an SM of the sweep kernel at its launch for [n_chains, M] (the
+    card is needed)."""
+    cpb, smem, _ = sweep_launch(M, n_chains, _cuda.max_smem_optin(0))
+    return _cuda.kernel_attrs("mlmc_rotor_sweep_attrs", 32 * cpb, smem)
 
 
 def _sweep_cuda(x, seed, *, kappa, M, n_steps, n_overrelax, n_heatbath,
@@ -128,7 +157,8 @@ def _sweep_cuda(x, seed, *, kappa, M, n_steps, n_overrelax, n_heatbath,
     _check_even(M)
     _cuda.require_cuda("x", x, (C, M))
     check_element_capacity(M // 2, C)
-    tpc, cpb, smem = sweep_smem_bytes(M, C)
+    cpb, smem, words = sweep_launch(
+        M, C, _cuda.max_smem_optin(x.device.index or 0))
     _cuda.check_smem(smem, x.device, f"the M={M} rotor path")
     seed1, seed2 = seed_pair(seed)
     out = torch.empty_like(x)
@@ -137,8 +167,8 @@ def _sweep_cuda(x, seed, *, kappa, M, n_steps, n_overrelax, n_heatbath,
     err = _cuda.load_library().mlmc_rotor_sweep(
         x.data_ptr(), out.data_ptr(),
         wsum.data_ptr() if wsum is not None else None, C, M, n_steps,
-        n_overrelax, n_heatbath, k_rej, float(kappa), seed1, seed2, tpc,
-        cpb, smem, _cuda.stream_ptr(x.device))
+        n_overrelax, n_heatbath, k_rej, float(kappa), seed1, seed2, cpb,
+        words, smem, _cuda.stream_ptr(x.device))
     _cuda.check_status(err, "rotor_sweep kernel launch")
     SWEEP.launches += 1
     return out, wsum
