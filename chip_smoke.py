@@ -107,11 +107,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
  14. gff_sweep - the GFF sweep kernel (csrc/gff_sweep.cu) against its
                plain version: overrelax-only within 1e-6, and after 64
                heat-bath draws (1 overrelax + 1 heat bath each) every chain
-               within TOL at path E's launch (4096 chains, 16x16) and at
-               128x128 and 256x256 (64 chains; the latter the global-memory
-               branch); the neighbour-sum kernel (P1) identical to its
-               plain version at the JAX probe's shapes (256 chains; 8x8,
-               16x16, 16x8, 8x16); rng_fill's step-less streams (P2: seed
+               within TOL at path E's launch (4096 chains, 16x16; the warp
+               branch) and at 128x128 and 256x256 (64 chains; the block
+               and the global-memory branch), with each launch's branch,
+               registers a thread and resident warps an SM; the
+               neighbour-sum kernel (P1) identical to its plain version at
+               the JAX probe's shapes (256 chains; 8x8, 16x16, 16x8, 8x16)
+               and, timed beside their bounds, at path E's field (4096 x
+               16x16) and 64 x 256x256; rng_fill's step-less streams (P2: seed
                42, 64 sites x 512 chains, words 1-3) with bits and
                uniforms identical; and the Schwinger sweep kernel on a
                256x256 lattice (64 chains, its global-memory branch):
@@ -440,9 +443,9 @@ def work_p1(C, Mx, Mt):
 
 
 def launch_layout(launch, attrs):
-    """A Schwinger kernel's launch layout (its launch function's (lanes,
-    chains a block, shared bytes, branch)) with its registers a thread and
-    resident warps an SM (the occupancy API)."""
+    """A Schwinger or GFF sweep kernel's launch layout (its launch
+    function's (lanes, chains a block, shared bytes, branch)) with its
+    registers a thread and resident warps an SM (the occupancy API)."""
     return {"lanes_per_chain": launch[0], "chains_per_block": launch[1],
             "smem_bytes": launch[2], "branch": launch[3], **attrs}
 
@@ -1129,7 +1132,10 @@ def main() -> int:
                "max_rel_err": float(d.max()),
                "max_abs_err": float((xk - xp).abs().max()),
                "in_global_memory": gff.sweep_launch(
-                   M, M, C, _cuda.max_smem_optin(0))[3],
+                   M, M, C, _cuda.max_smem_optin(0))[3] == "global",
+               "layout": launch_layout(gff.sweep_launch(
+                   M, M, C, _cuda.max_smem_optin(0)),
+                   gff.sweep_attrs(M, M, C)),
                **device_ms(lambda: gff.gff_sweep(x, (1, 2), **hkw),
                            "gff_sweep"),
                "plain_ms": plain_ms,
@@ -1149,6 +1155,18 @@ def main() -> int:
                     "plain_ms": cuda_ms(lambda: gff.gff_nbsum_plain(
                         x, 16, 16), 5),
                     "bound": bound_ms_row(*work_p1(256, 16, 16))}
+    # P1 where its bytes dominate: path E's field and 64 x 256x256
+    for name, C, M in (("nbsum_path_E_field", PATH_E_CHAINS, E_M),
+                       ("nbsum_256x256", 64, 256)):
+        x = torch.randn(C, M * M, generator=gen, device=dev)
+        eq = torch.equal(gff.gff_nbsum(x, M, M), gff.gff_nbsum_plain(x, M, M))
+        p1_eq &= eq
+        r14[name] = {"identical": bool(eq), "chains": C, "Mx": M, "Mt": M,
+                     **device_ms(lambda: gff.gff_nbsum(x, M, M),
+                                 "gff_nbsum"),
+                     "plain_ms": cuda_ms(lambda: gff.gff_nbsum_plain(
+                         x, M, M), 5),
+                     "bound": bound_ms_row(*work_p1(C, M, M))}
     # P2: the probe's step-less streams, seed 42, words 1-3
     p2 = dict(n_sites=64, n_chains=512, n_steps=1, n_ctr=3, step0=None)
     b, u, n = rng.rng_fill(42, device=dev, **p2)
@@ -1214,11 +1232,19 @@ def main() -> int:
                   plain_ms=rE["plain_ms"], **rE["bound"],
                   launch=dict(chains=PATH_E_CHAINS, Mt=E_M, Mx=E_M,
                               n_overrelax=1, n_heatbath=1),
+                  ms_128x128=r14["128x128"]["ms"],
+                  bound_ms_128x128=r14["128x128"]["bound"]["bound_ms"],
                   ms_256x256=r14["256x256"]["ms"],
-                  bound_ms_256x256=r14["256x256"]["bound"]["bound_ms"])
+                  bound_ms_256x256=r14["256x256"]["bound"]["bound_ms"],
+                  layouts={n: r14[n]["layout"] for n in
+                           ("path_E", "128x128", "256x256")})
     r1 = r14["nbsum"]
     p1_row = dict(max_abs_err=0.0, ms=r1["ms"], ms_from=r1["ms_from"],
-                  plain_ms=r1["plain_ms"], **r1["bound"], launch=r1["shape"])
+                  plain_ms=r1["plain_ms"], **r1["bound"], launch=r1["shape"],
+                  large_shapes={n: {k: r14[n][k] for k in (
+                      "chains", "Mx", "Mt", "ms", "ms_from", "plain_ms",
+                      "bound")} for n in ("nbsum_path_E_field",
+                                          "nbsum_256x256")})
     r2 = r14["rng_stepless"]
     p2_row = dict(max_abs_err=r2["normal_max_abs_err"], ms=r2["ms"],
                   ms_from=r2["ms_from"], plain_ms=r2["plain_ms"],

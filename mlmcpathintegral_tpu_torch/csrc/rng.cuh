@@ -56,7 +56,7 @@ struct CounterRng {
 
   // step-less stream (the JAX class with step=None): base_s is the site
   // lane's first hash alone, base_s = fmix32(site*0x9E3779B9 ^ seed1).
-  // The GFF sweep (gff_sweep.cu) is the one kernel that draws from it.
+  // The GFF sweep (gff_sweep.cu) draws from it, in the split form below.
   __device__ __forceinline__ CounterRng(uint32_t seed1, uint32_t seed2,
                                         uint32_t site, uint32_t chain) {
     base_s = fmix32((site * 0x9E3779B9u) ^ seed1);
@@ -83,10 +83,14 @@ struct CounterRng {
 };
 
 // The same bits split into the parts a kernel can hoist out of its loops
-// (rotor_cluster.cu, qm_twolevel.cu): for every (site, chain, step, ctr)
+// (rotor_cluster.cu, qm_twolevel.cu, gff_sweep.cu): for every (site,
+// chain, step, ctr)
 //   split_bits(step_base(site_hash(seed1, site), step),
 //              chain_word(seed2, chain, ctr), ctr)
-//     == CounterRng(seed1, seed2, site, chain, step).bits(ctr).
+//     == CounterRng(seed1, seed2, site, chain, step).bits(ctr),
+// and for the step-less streams
+//   split_bits(site_hash(seed1, site), chain_word(seed2, chain, ctr), ctr)
+//     == CounterRng(seed1, seed2, site, chain).bits(ctr).
 // site_hash is fixed for a launch, chain_word for a chain and a counter.
 __device__ __forceinline__ uint32_t site_hash(uint32_t seed1, uint32_t site) {
   return fmix32((site * 0x9E3779B9u) ^ seed1);
@@ -96,9 +100,19 @@ __device__ __forceinline__ uint32_t step_base(uint32_t site_h, uint32_t step) {
   return fmix32(site_h + step * 0x165667B1u);
 }
 
+// chain_word in two parts: the chain's hash (base_c), fixed for a chain,
+// and its word at a counter
+__device__ __forceinline__ uint32_t chain_base(uint32_t seed2, uint32_t chain) {
+  return fmix32((chain * 0x85EBCA77u) ^ seed2);
+}
+
+__device__ __forceinline__ uint32_t base_word(uint32_t base_c, uint32_t ctr) {
+  return fmix32(base_c + ctr * 0x27D4EB2Fu);
+}
+
 __device__ __forceinline__ uint32_t chain_word(uint32_t seed2, uint32_t chain,
                                                uint32_t ctr) {
-  return fmix32(fmix32((chain * 0x85EBCA77u) ^ seed2) + ctr * 0x27D4EB2Fu);
+  return base_word(chain_base(seed2, chain), ctr);
 }
 
 __device__ __forceinline__ uint32_t split_bits(uint32_t base_s, uint32_t cw,

@@ -52,7 +52,8 @@ _SIGNATURES = {
     "mlmc_gff_sweep": [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
                        c_float, c_float, c_u32, c_u32, c_int, c_int, c_int,
                        c_size, c_ptr],
-    "mlmc_gff_nbsum": [c_ptr, c_ptr, c_int, c_int, c_int, c_ptr],
+    "mlmc_gff_nbsum": [c_ptr, c_ptr] + [c_int] * 8 + [c_ptr],
+    "mlmc_gff_sweep_attrs": [c_int, c_size, c_int, ctypes.POINTER(c_int)],
     "mlmc_schwinger_sweep_attrs": [c_int, c_size, c_int,
                                    ctypes.POINTER(c_int)],
     "mlmc_schwinger_twolevel": [c_ptr] * 13 + [c_int] * 13 + [c_float] * 5

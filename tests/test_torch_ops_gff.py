@@ -126,10 +126,9 @@ def test_sweep_launch_moves_large_fields_to_global_memory(launch, Mx,
                                                           n_chains,
                                                           in_global):
     tpc, cpb, smem, glob = launch(Mx, Mx, n_chains, H100_SMEM_OPTIN)
-    if launch is tps.sweep_launch:
-        # the Schwinger sweep names its branch: the warp design, a block,
-        # or global memory
-        glob = glob == "global"
+    # both sweeps name their branch: the warp design, a block, or global
+    # memory
+    glob = glob == "global"
     assert glob is in_global
     assert tpc & (tpc - 1) == 0 and tpc <= 1024 and smem <= H100_SMEM_OPTIN
     if launch is tps.sweep_launch:
