@@ -8,11 +8,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. build   - compile the kernels of ``csrc/`` with nvcc (timed) and
                print the card's name and power limit;
   2. rng     - the counter RNG (csrc/rng.cuh, through csrc/rng_fill.cu)
-               against its plain PyTorch version over two id grids: all
-               1024 chains x 64 sites at steps 0-3, counters 1-8, and the
+               against its plain PyTorch version over three id grids: all
+               1024 chains x 64 sites at steps 0-3, counters 1-8; the
                main path's whole step x counter range (steps 0-2303,
-               counters 1-320) at 16 sites x 4 chains; bits and uniforms
-               identical, normals within 1e-6;
+               counters 1-320) at 16 sites x 4 chains; and the step-less
+               streams at 256 sites x 4096 chains, counters 1-32; bits
+               and uniforms identical, normals within 1e-6; then the
+               kernel's device time (profiler) at the first grid and at
+               two grids of 33.5M words (stepped and step-less), each
+               beside its bound;
   3. sweep   - the sweep-chain kernel: overrelax-only against the plain
                version (max |d theta| <= 1e-5), n_steps=N against N
                single draws (bit-identical), with heat bath at 8x8 and
@@ -51,7 +55,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                of one site), with the sha256 of the single sweep's and of
                the B2 launch's outputs, the launch's layout (chains a
                block, shared bytes, table words; a warp a chain),
-               registers a thread and resident warps an SM;
+               registers a thread and resident warps an SM; and path F2's
+               launch (one draw of the rotor file's coarsest level: M=16,
+               4096 chains, kappa=1, 10 overrelaxation + 1 heat-bath
+               sweeps) against it (>= SHARE_MIN within 1e-4 mod 2 pi),
+               timed beside its bound;
   7. rotor_cluster - the Wolff cluster kernel (csrc/rotor_cluster.cu)
                against its plain version at path A's launch shape (M=16,
                1024 chains, 5 updates; 64 steps compared, the 1-step launch
@@ -76,7 +84,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                kernel trajectories, so some chains reject), for each kind
                at path D's launch (8192 chains, M=64, nt=20) and for the
                quartic one at path C's coarse launch (4096 chains, M=32,
-               nt=100): >= SHARE_MIN of chains with x within TOL and the
+               nt=100) and for the harmonic one at path F's (the
+               hierarchy's coarsest level of runs F1 and F3: 4096 chains,
+               M=16, nt=100, a=4/16; an aligned half-warp a chain):
+               >= SHARE_MIN of chains with x within TOL and the
                same accept bit; with each launch's sha256 of x_out and
                accept, its layout (branch, lanes a chain, sites a lane,
                chains a block, shared bytes), registers a thread and
@@ -129,7 +140,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                phi_squared_analytical, 100 + 4 x 256 + 512 = 1636 sweep
                launches and no plain-version call on CUDA; then the same
                run under the profiler for the sampling phase's idle share
-               and device ms per draw.
+               and device ms per draw;
+ 16. qm_driver - a float64 file with use_pallas raises the kernels'
+               TypeError on the card with no launch; then the QM driver
+               (``drivers.qm.run``) on the reference's QM files at their
+               widths (M_lat = 64, T = 4, nt = 100, 3 levels; 4096 f32
+               chains where a file has no parallel section): the
+               hierarchical sampler with HMC (K5) and heat-bath (K8)
+               coarse chains, the multilevel sampler (K5), the
+               double-well two-level run (K5), the rotor MLMC with plain
+               cluster coarse chains, and the Schwinger two-level run
+               through ``drivers.qft.run`` (K3 on its coarse chains); each
+               within 4 sigma of its oracle (runs 2 and 3 the JAX
+               package's estimate of their file, their methods' own bias
+               beside it; run 4 the C++ run's), its path's kernels
+               launched, no plain-version call on CUDA, and the phase
+               that records its samples under the profiler, through the
+               drivers' ``sampling_scope``, for its host and device ms a
+               draw (``QM_RUNS``, ``REFERENCES``, ``ProfiledPhase``).
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; each kernel of a path must have launched in it.  The
@@ -187,7 +215,14 @@ MAX_HAZARD = 0.05
 HAZARD_MIN_ALIVE = 100
 
 
+#: the script's start, for each line's seconds since it (``t_s``)
+START = time.monotonic()
+
+
 def emit(obj):
+    """One JSON line; a phase's line gets the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.monotonic() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -458,13 +493,241 @@ def bound_ms_row(nbytes, nops):
                 library_ms=None)
 
 
+#: the qm_driver phase's runs: (name, driver, parameter file, settings
+#: changed in the run's copy of the file, kernel counters that must
+#: launch, cuts of scale (listed in the phase's line)).  Every run sets
+#: parallel.dtype = 'float32' (the kernels' type) and 4096 chains where the
+#: file has no parallel section.
+QM_RUNS = (
+    ("1_harmonic_hierarchical_hmc", "qm",
+     "baselines/configs/ref_qm_harmonic_hmc.in",
+     {("singlelevelmc", "sampler"): "hierarchical",
+      ("hmc", "use_pallas"): True}, ("hmc_trajectory",), {}),
+    ("2_rotor_hierarchical_heatbath", "qm",
+     "baselines/configs/ref_qm_rotor_cluster.in",
+     {("singlelevelmc", "sampler"): "hierarchical",
+      ("heatbath", "use_pallas"): True}, ("rotor_sweep_chain",),
+     {("singlelevelmc", "n_burnin"): 1000}),
+    ("3_harmonic_multilevel_sampler", "qm",
+     "baselines/configs/ref_qm_harmonic_hmc.in",
+     {("singlelevelmc", "sampler"): "multilevel",
+      ("hmc", "use_pallas"): True}, ("hmc_trajectory",),
+     {("singlelevelmc", "n_burnin"): 500}),
+    ("4_quartic_twolevel", "qm",
+     "baselines/configs/ref_qm_quartic_twolevel.in",
+     {("hmc", "use_pallas"): True}, ("hmc_trajectory",), {}),
+    ("5_rotor_mlmc_cluster", "qm", "configs/qm_rotor_multilevel.in", {}, (),
+     {}),
+    ("6_schwinger_twolevel_heatbath", "qft",
+     "baselines/configs/ref_qft_schwinger_mlmc.in",
+     {("general", "method"): "twolevel",
+      ("twolevelmc", "sampler"): "heatbath",
+      ("heatbath", "use_pallas"): True}, ("schwinger_sweep_chain",), {}),
+)
+#: runs held to a reference run's estimate and error (combined sigma) in
+#: place of the analytic value: the double well has none (the C++ run's
+#: <x^2>, PERF.md section 2); the hierarchical walk with the checkerboard
+#: heat bath as its coarsest move is biased in the JAX package itself (the
+#: half-sweeps' fixed order is not reversible), so run 2 is held to the
+#: JAX package's estimate of the same file, its distance from chit_exact
+#: reported beside it; the multilevel sampler's persistent, tau-spaced
+#: coarse chains are not independent of the fine state, and bias its
+#: estimate in the JAX package too, so run 3 is held to the JAX package's
+#: estimate of its file.  Both from JAX on the CPU in f64, seed 0,
+#: burn-in 256 (PERF.md section 6 has their JSON lines):
+#:   JAX_PLATFORMS=cpu python scripts/jax_qm_reference.py \
+#:       baselines/configs/ref_qm_rotor_cluster.in \
+#:       --set "singlelevelmc.sampler='hierarchical'" \
+#:       --chains 512 --samples 2048
+#:   JAX_PLATFORMS=cpu python scripts/jax_qm_reference.py \
+#:       baselines/configs/ref_qm_harmonic_hmc.in \
+#:       --set "singlelevelmc.sampler='multilevel'" \
+#:       --chains 1024 --samples 1024
+REFERENCES = {"4_quartic_twolevel": (0.599879, 0.001528),
+              "2_rotor_hierarchical_heatbath": (0.12326669692993164,
+                                                0.0003980669737580518),
+              "3_harmonic_multilevel_sampler": (0.5164759683691835,
+                                                0.0004083067131027976)}
+
+
+class ProfiledPhase:
+    """The drivers' ``sampling_scope``: the phase that records a run's
+    samples under the profiler (device activity), the card synchronised at
+    both ends.  Afterwards ``host_ms`` holds the phase's wall (the
+    profiler's start and stop outside it, its tracing inside),
+    ``device_busy_ms`` the union of the phase's device intervals,
+    ``events`` their number and ``profile_s`` the seconds taken to read
+    them."""
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+        torch.cuda.synchronize()
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        from mlmcpathintegral_tpu_torch.perf_probe import union_ms
+        torch.cuda.synchronize()
+        self.host_ms = (time.monotonic() - self.t0) * 1e3
+        self.prof.stop()
+        t0 = time.monotonic()
+        ivals = [(e.start_ns() / 1e3, e.end_ns() / 1e3)
+                 for e in self.prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+        self.events, self.device_busy_ms = len(ivals), union_ms(ivals)
+        self.profile_s = time.monotonic() - t0
+        del self.prof
+        return False
+
+
+def qm_run_config(root, run):
+    """The run's copy of its parameter file with its settings and cuts."""
+    from mlmcpathintegral_tpu_torch.utils.config import read_parameter_file
+    _, _, path, settings, _, cuts = run
+    cfg = read_parameter_file(root / path)
+    par = cfg.setdefault("parallel", {"n_chains": 4096})
+    par["dtype"] = "float32"
+    for (sec, key), value in {**settings, **cuts}.items():
+        cfg.setdefault(sec, {})[key] = value
+    return cfg
+
+
+def path_f_coarsest(root, name):
+    """(coarsest action, run's config) of run ``name`` of QM_RUNS: the
+    file's action, built by the QM driver's own reader, coarsened to the
+    last level of its ``hierarchical`` section, where the run's sampler
+    launches its kernel."""
+    from mlmcpathintegral_tpu_torch.drivers.qm import build_action
+    from mlmcpathintegral_tpu_torch.lattice import Lattice1D
+    cfg = qm_run_config(root, next(r for r in QM_RUNS if r[0] == name))
+    action = build_action(cfg, Lattice1D(cfg["lattice"]["M_lat"],
+                                         cfg["lattice"]["T_final"]))
+    for _ in range(cfg["hierarchical"]["n_max_level"] - 1):
+        action = action.coarse_action()
+    return action, cfg
+
+
+def qm_driver_phase(dev, root):
+    """Drive drivers.qm.run (and drivers.qft.run for the Schwinger
+    two-level run) on the card for each run of QM_RUNS, the launch
+    counters set to 0 just before each, the phase that records its
+    samples under the profiler (ProfiledPhase); gate each estimate at 4
+    sigma from its oracle.  Returns (rows, launches by kernel summed over the runs,
+    ok)."""
+    import io
+    import warnings
+
+    from mlmcpathintegral_tpu_torch import ops
+    from mlmcpathintegral_tpu_torch.drivers import qft as qft_driver
+    from mlmcpathintegral_tpu_torch.drivers import qm as qm_driver
+    drivers = {"qm": qm_driver, "qft": qft_driver}
+
+    def drive(run, cfg, scope=None):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            # the files' heatbath.random_order, which a coloured sweep
+            # ignores
+            warnings.simplefilter("ignore", UserWarning)
+            t0 = time.monotonic()
+            res = drivers[run[1]].run(cfg, device=dev, seed=0,
+                                      sampling_scope=scope)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        return res, time.monotonic() - t0, out.getvalue().splitlines()
+
+    # a float64 file with use_pallas on the card fails with the kernels'
+    # type error: nothing casts it or runs the plain version instead
+    cfg = qm_run_config(root, QM_RUNS[0])
+    cfg["parallel"]["dtype"] = "float64"
+    ops.reset_counters()
+    try:
+        drive(QM_RUNS[0], cfg)
+        f64_error = None
+    except TypeError as e:
+        f64_error = str(e)
+    rows = {"float64_use_pallas": {
+        "error": f64_error, "launches": sum(c.launches
+                                            for c in ops.counters()),
+        "plain_calls_on_cuda": sum(c.plain_cuda_calls
+                                   for c in ops.counters())}}
+    emit({"phase": "qm_driver", "run": "float64_use_pallas",
+          **rows["float64_use_pallas"]})
+    ok = (f64_error is not None and "float32" in f64_error
+          and not rows["float64_use_pallas"]["launches"]
+          and not rows["float64_use_pallas"]["plain_calls_on_cuda"])
+    totals = {}
+    for run in QM_RUNS:
+        name, _, path, settings, kernels, cuts = run
+        cfg = qm_run_config(root, run)
+        phase = ProfiledPhase()
+        ops.reset_counters()
+        res, wall_s, lines = drive(run, cfg, phase)
+        launches = {c.name: c.launches for c in ops.counters()}
+        plain = {c.name: c.plain_cuda_calls for c in ops.counters()}
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        oracle, oracle_err = REFERENCES.get(name, (res["analytical"], 0.0))
+        sigma = abs(res["numerical"] - oracle) / math.hypot(res["error"],
+                                                            oracle_err)
+        # the draws a chain made in the phase that records the samples
+        # (MLMC: the samples a chain recorded on all levels, in its cost
+        # measurement and adaptive loop)
+        n_chains = res["n_chains"]
+        draws = (sum(res["level_samples"]) / n_chains
+                 if res["method"] == "multilevel" else res["sampling_draws"])
+        row = {"driver": run[1], "file": path,
+               "settings": {f"{a}.{b}": v for (a, b), v in
+                            settings.items()},
+               "cuts": {f"{a}.{b}": v for (a, b), v in cuts.items()},
+               "n_chains": n_chains, "dtype": "float32",
+               "method": res["method"], "action": res["action"],
+               "estimate": res["numerical"], "error": res["error"],
+               "sigma": math.sqrt(res["variance"])
+               if "variance" in res else None,
+               "tau_int": res.get("tau_int", res.get("level_tau_int")),
+               "oracle": oracle, "oracle_error": oracle_err,
+               "sigma_dev": sigma, "analytical": res["analytical"],
+               "sigma_dev_analytical": res["sigma_dev"],
+               "level_acceptance": res.get("level_acceptance"),
+               "level_t_indep": res.get("level_t_indep"),
+               "p_accept": res.get("p_accept"),
+               "t_indep": res.get("t_indep"),
+               "launches": {k: v for k, v in launches.items() if v},
+               "plain_calls_on_cuda": plain,
+               "wall_s": wall_s, "timings": res["timings"],
+               "draws_per_chain": draws,
+               "sampling_phase": {
+                   "host_ms": phase.host_ms,
+                   "device_busy_ms": phase.device_busy_ms,
+                   "busy_share": phase.device_busy_ms / phase.host_ms,
+                   "device_events": phase.events,
+                   "profile_s": phase.profile_s},
+               "host_ms_per_draw": phase.host_ms / max(draws, 1),
+               "device_ms_per_draw": phase.device_busy_ms / max(draws, 1),
+               "report_tail": lines[-2:]}
+        rows[name] = row
+        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        bad = (not math.isfinite(res["numerical"]) or sigma > 4.0
+               or missing or any(plain.values()))
+        emit({"phase": "qm_driver", "run": name, **row})
+        if bad:
+            print(f"chip_smoke: qm_driver run {name}: {sigma:.2f} sigma, "
+                  f"kernels not launched {missing}, plain calls on CUDA "
+                  f"{plain}", file=sys.stderr, flush=True)
+            ok = False
+    return rows, totals, ok
+
+
 def main() -> int:
     start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
     try:
         from mlmcpathintegral_tpu_torch import ops
         from mlmcpathintegral_tpu_torch.ops import _cuda
@@ -512,11 +775,14 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # ---- 2. K1: counter RNG ---------------------------------------------
-    # all chains and sites at a few ids; then the main path's whole step x
+    # all chains and sites at a few ids; the main path's whole step x
     # counter range (two-level steps s*(t_sub+1)+t up to 255*9+8 = 2303,
-    # fill and accept counters up to 292) at the 16 sites of its grids
+    # fill and accept counters up to 292) at the 16 sites of its grids;
+    # and the step-less streams (the GFF sweep's) over 33.5M words
     grids = (dict(n_sites=64, n_chains=1024, n_steps=4, n_ctr=8),
-             dict(n_sites=16, n_chains=4, n_steps=2304, n_ctr=320))
+             dict(n_sites=16, n_chains=4, n_steps=2304, n_ctr=320),
+             dict(n_sites=256, n_chains=4096, n_steps=1, n_ctr=32,
+                  step0=None))
     bits_eq = uni_eq = True
     nrm_err, n_ids = 0.0, 0
     for g in grids:
@@ -528,17 +794,39 @@ def main() -> int:
         nrm_err = max(nrm_err, float((n - np_).abs().max()))
         n_ids += b.numel()
         del b, u, n, bp, up, np_
-    rkw = dict(grids[0], device=dev)
-    ms = cuda_ms(lambda: rng.rng_fill((1, 2), **rkw), 20)
-    plain_ms = cuda_ms(lambda: rng.rng_fill_plain((1, 2), **rkw), 3)
+    torch.cuda.empty_cache()
+    # the kernel's own device time (the profiler's, without the wrapper's
+    # allocations and its widening of the bits) at the kernel table's grid
+    # and at two grids of 33.5M words where the stores dominate
+    timed_grids = {"table": grids[0],
+                   "stepped_33.5M": dict(n_sites=64, n_chains=4096,
+                                         n_steps=4, n_ctr=32),
+                   "stepless_33.5M": grids[2]}
+    rng_times = {}
+    for name, g in timed_grids.items():
+        ms, _ = kernel_device_ms(
+            lambda: rng.rng_fill((1, 2), device=dev, **g), 20, "rng_fill")
+        bound = bound_ms_row(*work_rng(g["n_sites"], g["n_chains"],
+                                       g["n_steps"], g["n_ctr"]))
+        rng_times[name] = {"grid": g, "ms": ms, "ms_from": "profiler",
+                           "bound_ms": bound["bound_ms"],
+                           "bound_by": bound["bound_by"],
+                           "share_of_bound": bound["bound_ms"] / ms,
+                           "plain_ms": cuda_ms(lambda: rng.rng_fill_plain(
+                               (1, 2), device=dev, **g), 2)}
+        torch.cuda.empty_cache()
+    plain_ms = rng_times["table"]["plain_ms"]
     emit({"phase": "rng", "ids": n_ids, "grids": grids,
           "bits_identical": bits_eq, "uniforms_identical": uni_eq,
-          "normal_max_abs_err": nrm_err, "ms": ms, "plain_ms": plain_ms,
-          "timed_grid": grids[0]})
+          "normal_max_abs_err": nrm_err, "timed": rng_times,
+          "plain_ms": plain_ms})
     if not (bits_eq and uni_eq and nrm_err <= 1e-6):
         fail("counter RNG disagrees with its plain version")
-    rng_row = dict(max_abs_err=nrm_err, ms=ms, plain_ms=plain_ms,
-                   **bound_ms_row(*work_rng(**grids[0])))
+    rng_row = dict(max_abs_err=nrm_err, ms=rng_times["table"]["ms"],
+                   ms_from="profiler", plain_ms=plain_ms,
+                   **bound_ms_row(*work_rng(**grids[0])),
+                   large_grids={k: rng_times[k] for k in (
+                       "stepped_33.5M", "stepless_33.5M")})
 
     # ---- 3. K2/K3: sweep chain ------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -731,16 +1019,60 @@ def main() -> int:
     ms = cuda_ms(lambda: rotor.rotor_sweep_chain(xB, (5, 6), **bkw), 5)
     r8.update(ms=ms, plain_ms=plain_ms, rejection_rounds=k8_rounds,
               main_shape=f"M={B_M}, {B_C} chains, n_steps={B_STEPS}")
+    # path F2's launch: one draw of the heat-bath sampler on the coarsest
+    # level of the rotor file's hierarchy (its kappa, M and sweeps, the
+    # run's chains), from a path equilibrated by the kernel itself
+    f2_act, f2_cfg = path_f_coarsest(root, "2_rotor_hierarchical_heatbath")
+    f2_hb, f2_C = f2_cfg["heatbath"], f2_cfg["parallel"]["n_chains"]
+    fkw = dict(kappa=f2_act.m0 / f2_act.a_lat, M=f2_act.lattice.M_lat,
+               n_overrelax=f2_hb["n_sweep_overrelax"],
+               n_heatbath=f2_hb["n_sweep_heatbath"])
+    xF = (torch.rand(f2_C, fkw["M"], generator=gen, device=dev) * 2
+          - 1) * math.pi
+    for i in range(20):
+        xF = rotor.rotor_sweep(xF, (11, i), **fkw)
+    k = rotor.rotor_sweep(xF, (12, 13), **fkw)
+    p, f2_rounds, f2_plain_ms = tallied(
+        lambda: rotor.rotor_sweep_chain_plain(xF, (12, 13), n_steps=1,
+                                              **fkw)[0])
+    f2_launch = lambda: rotor.rotor_sweep(xF, (12, 13), **fkw)  # noqa: E731
+    f2_ms, _ = kernel_device_ms(f2_launch, 50, "rotor_sweep")
+    f2_from = "profiler"
+    if f2_ms is None:
+        f2_ms, f2_from = cuda_ms(f2_launch, 50), "CUDA events"
+    f2_err = torch.remainder(k.double() - p.double() + math.pi,
+                             2 * math.pi) - math.pi
+    r8["path_F2"] = {
+        "shape": f"M={fkw['M']}, {f2_C} chains, kappa={fkw['kappa']}, "
+                 f"{fkw['n_overrelax']} overrelaxation + "
+                 f"{fkw['n_heatbath']} heat-bath sweeps, n_steps=1",
+        "share_within_1e-4": angle_share(k, p, TOL),
+        "max_abs_err": float(f2_err.abs().max()), "sha256": sha256_of([k]),
+        "ms": f2_ms, "ms_from": f2_from, "plain_ms": f2_plain_ms,
+        "rejection_rounds": f2_rounds,
+        "bound": bound_ms_row(*work_k8(
+            f2_C, fkw["M"], 1, f2_rounds["expcos"],
+            fkw["n_overrelax"], fkw["n_heatbath"])),
+        "layout": dict(zip(
+            ("chains_per_block", "smem_bytes", "table_words"),
+            rotor.sweep_launch(fkw["M"], f2_C,
+                               _cuda.max_smem_optin(dev.index or 0)))),
+        "attrs": rotor.sweep_attrs(fkw["M"], f2_C)}
     emit({"phase": "rotor_sweep", **r8})
     if r8["overrelax_field_max_abs_err"] != 0.0 or not main_ok \
             or r8["overrelax_wsum_share_within_1e-4"] < 1.0 \
             or r8["single_sweep_share_within_1e-4"] < SHARE_MIN \
-            or main_rep["field_share_within_1e-4"] < SHARE_MIN:
+            or main_rep["field_share_within_1e-4"] < SHARE_MIN \
+            or r8["path_F2"]["share_within_1e-4"] < SHARE_MIN:
         fail("rotor sweep kernel disagrees with its plain version")
     k8_row = dict(max_abs_err=main_rep["max_abs_err_while_together"],
                   ms=ms, plain_ms=plain_ms, **bound_ms_row(*work_k8(
                       B_C, B_M, B_STEPS, k8_rounds["expcos"])),
-                  rejection_rounds=k8_rounds, attrs=r8["attrs"])
+                  rejection_rounds=k8_rounds, attrs=r8["attrs"],
+                  max_abs_err_path_F2=r8["path_F2"]["max_abs_err"],
+                  ms_path_F2=f2_ms, ms_from_path_F2=f2_from,
+                  plain_ms_path_F2=f2_plain_ms,
+                  bound_ms_path_F2=r8["path_F2"]["bound"]["bound_ms"])
 
     # ---- 7. K7: rotor cluster chain -------------------------------------
     r7 = {}
@@ -930,16 +1262,28 @@ def main() -> int:
     QM = dict(m0=1.0, mu2=1.0, lam=1.0, x0=1.0)
     kinds = {"harmonic": dict(m0=1.0, mu2=1.0), "quartic": QM,
              "rotor": dict(m0=1.0)}
-    # (name, chains, sites, nt, spacing, kinds): path D's launch and path
-    # C's coarse-chain launch (coarse spacing 2a = 4/32)
-    launches_k5 = (("path_D", 8192, 64, 20, 4.0 / 64, sorted(kinds)),
-                   ("path_C_coarse", 4096, 32, 100, 4.0 / 32, ["quartic"]))
+    # path F1's and F3's launch: the coarsest level of the harmonic file's
+    # hierarchy (the run's chains, the file's nt)
+    f1_act, f1_cfg = path_f_coarsest(root, "1_harmonic_hierarchical_hmc")
+    f1_kind, f1_par = hmc.action_kernel_params(f1_act)
+    # (name, chains, sites, nt, {kind: parameters}, the kind timed): path
+    # D's launch, path C's coarse-chain launch (coarse spacing 2a = 4/32)
+    # and path F's
+    launches_k5 = (
+        ("path_D", 8192, 64, 20,
+         {kn: dict(kinds[kn], a_lat=4.0 / 64) for kn in sorted(kinds)},
+         "harmonic"),
+        ("path_C_coarse", 4096, 32, 100, {"quartic": dict(QM, a_lat=4.0 / 32)},
+         "quartic"),
+        ("path_F_coarsest", f1_cfg["parallel"]["n_chains"],
+         f1_act.lattice.M_lat, f1_cfg["hmc"]["nt"], {f1_kind: f1_par},
+         f1_kind))
     r10, k5_ok, dt_t = {}, True, torch.tensor(0.1, device=dev)
-    for name, C, M, nt, a, knames in launches_k5:
-        for kn in knames:
+    for name, C, M, nt, params, timed in launches_k5:
+        for kn, par in params.items():
             x = torch.randn(C, M, generator=gen, device=dev) * 0.5 \
-                + kinds[kn].get("x0", 0.0)
-            hkw = dict(kind=kn, a_lat=a, nt=nt, **kinds[kn])
+                + par.get("x0", 0.0)
+            hkw = dict(kind=kn, nt=nt, **par)
             # a hot start accepts every trajectory (dH << 0): equilibrate
             # first, so that the compared launch rejects some chains
             for _ in range(30):
@@ -964,7 +1308,7 @@ def main() -> int:
                        hmc.hmc_launch(M, C))),
                    "attrs": hmc.hmc_attrs(M, C, kn)}
             k5_ok &= share >= SHARE_MIN
-            if kn == ("harmonic" if name == "path_D" else "quartic"):
+            if kn == timed:
                 launch = lambda: hmc.hmc_trajectory(  # noqa: E731
                     x, p, u, dt_t, **hkw)
                 rep["host_ms_per_launch"] = cuda_ms(launch, 50)
@@ -975,7 +1319,8 @@ def main() -> int:
                         "CUDA events"
                 rep["bound"] = bound_ms_row(*work_k5(C, M, nt, kn))
             r10[f"{name}:{kn}"] = rep
-    emit({"phase": "hmc", "shapes": [s[:5] for s in launches_k5], **r10})
+    emit({"phase": "hmc", "shapes": [[*s[:4], sorted(s[4])]
+                                     for s in launches_k5], **r10})
     if not k5_ok:
         fail("HMC trajectory kernel disagrees with its plain version")
     rD = r10["path_D:harmonic"]
@@ -987,6 +1332,11 @@ def main() -> int:
                   bound_ms_path_C_coarse=r10["path_C_coarse:quartic"][
                       "bound"]["bound_ms"], attrs=rD["attrs"],
                   attrs_path_C_coarse=r10["path_C_coarse:quartic"]["attrs"])
+    rF = r10[f"path_F_coarsest:{f1_kind}"]
+    k5_row.update(max_abs_err_path_F=rF["max_abs_err"], ms_path_F=rF["ms"],
+                  plain_ms_path_F=rF["plain_ms"],
+                  bound_ms_path_F=rF["bound"]["bound_ms"],
+                  attrs_path_F=rF["attrs"])
 
     # ---- 12. path D: single-level HMC through K5 -------------------------
     ops.reset_counters()
@@ -1245,11 +1595,17 @@ def main() -> int:
                       "chains", "Mx", "Mt", "ms", "ms_from", "plain_ms",
                       "bound")} for n in ("nbsum_path_E_field",
                                           "nbsum_256x256")})
-    r2 = r14["rng_stepless"]
-    p2_row = dict(max_abs_err=r2["normal_max_abs_err"], ms=r2["ms"],
-                  ms_from=r2["ms_from"], plain_ms=r2["plain_ms"],
-                  **r2["bound"],
-                  launch=r2["grid"])
+    # P2's time and bound at the step-less 33.5M-word grid of phase 2,
+    # where the stores dominate; the probe's own grid (3 words a stream)
+    # beside it
+    r2, t2 = r14["rng_stepless"], rng_times["stepless_33.5M"]
+    p2_row = dict(max_abs_err=max(r2["normal_max_abs_err"], nrm_err),
+                  ms=t2["ms"], ms_from=t2["ms_from"],
+                  plain_ms=t2["plain_ms"],
+                  **bound_ms_row(*work_rng(256, 4096, 1, 32)),
+                  launch=t2["grid"], probe_grid=r2["grid"],
+                  ms_probe_grid=r2["ms"], plain_ms_probe_grid=r2["plain_ms"],
+                  bound_ms_probe_grid=r2["bound"]["bound_ms"])
 
     # ---- 15. path E: the GFF heat bath through the QFT driver ------------
     ops.reset_counters()
@@ -1271,6 +1627,14 @@ def main() -> int:
             or any(rep_e["plain_calls_on_cuda"].values()):
         fail(f"path E made {rep_e['launches'][gff.SWEEP.name]} GFF sweep "
              f"launches (want {want_k9}) or ran a plain version on CUDA")
+
+    # ---- 16. qm_driver: the QM driver's samplers and methods, and the
+    # Schwinger two-level run of the QFT driver, at the reference files'
+    # widths (K5, K8 and K3 on the coarsest levels)
+    qm_rows, qm_launches, qm_ok = qm_driver_phase(dev, root)
+    if not qm_ok:
+        fail("a qm_driver run missed its oracle, launched no kernel of its "
+             "path or ran a plain version on CUDA")
 
     # ---- the kernel table and the result line ---------------------------
     # every kernel with its launches on its own path: K3 and K4 on the
@@ -1306,6 +1670,9 @@ def main() -> int:
     rows[3]["also_replaces"] = "mlmcpathintegral_tpu/ops/" \
         "pallas_rotor.py:140"       # rotor_sweep: the same kernel
     rows[2]["launches_path_B1"] = rep_b1["launches"][rotor.CLUSTER.name]
+    # the qm_driver phase's launches of its path's kernels (K3, K8, K5)
+    for i in (0, 3, 4):
+        rows[i]["launches_qm_driver"] = qm_launches[rows[i]["name"]]
     rows[4]["launches_path_C"] = rep_c["launches"][hmc.HMC.name]
     device_functions = [{
         "name": "CounterRng", "route": "cuda", "source": ops.RNG_FILL.source,

@@ -22,6 +22,7 @@ words without a copy from the card.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from pathlib import Path
@@ -107,7 +108,7 @@ class MonteCarloSingleLevel:
     # -------------------------------------------------------------------------
 
     def evaluate(self, generator, n_chains: int, dtype=torch.float32,
-                 device="cuda", verbose: bool = False):
+                 device="cuda", verbose: bool = False, sampling_scope=None):
         """Run burn-in + adaptive sampling; returns (sampler_state,
         stats_state) (montecarlosinglelevel.cc:23-94).  ``generator``: a
         CPU ``torch.Generator`` (or an int seed for one) from which every
@@ -115,7 +116,9 @@ class MonteCarloSingleLevel:
         the chains live, the card unless the caller asks for the CPU.
         ``timings`` holds the host seconds of set-up (``prepare_s``: the
         sampler's initialisation and burn-in), burn-in (``burnin_s``) and
-        sampling (``sampling_s``), each ending in a synchronisation."""
+        sampling (``sampling_s``), each ending in a synchronisation.
+        ``sampling_scope``: a context manager (a profiler, say) entered
+        around the sampling phase, outside its timer."""
         device = _cuda.run_device(device)
         t0 = time.monotonic()
         self.timings = {}
@@ -144,34 +147,37 @@ class MonteCarloSingleLevel:
         if verbose:
             print("Burnin completed")
 
-        t_phase = time.monotonic()
-        if self.qoi_log_path is not None:
-            self._log_fh = open(self.qoi_log_path, "wb")
-        try:
-            two_eps_inv2 = 2.0 / (self.epsilon * self.epsilon)
-            # accepted moves accumulate on the device (float64: exact
-            # counts far beyond any run); ``done`` is tracked on the host
-            n_accepted = torch.zeros((), dtype=torch.float64, device=device)
-            n_drawn = 0
-            done = 0
-            while True:
-                n_target = self._target(stats, two_eps_inv2)
-                local_target = -(-n_target // n_chains)   # ceil
-                if done >= local_target:
-                    break
-                n = min(self.chunk_size, local_target - done)
-                sstate, stats, n_acc = self._chunk(
-                    chunk_generator(next_seed(), gen_device), sstate, stats,
-                    n)
-                n_accepted = n_accepted + n_acc
-                done += n
-                n_drawn += self.chunk_size * n_chains
-            sync((sstate, stats))
-        finally:
-            if self._log_fh is not None:
-                self._log_fh.close()
-                self._log_fh = None
-        self.timings["sampling_s"] = time.monotonic() - t_phase
+        with sampling_scope or contextlib.nullcontext():
+            t_phase = time.monotonic()
+            if self.qoi_log_path is not None:
+                self._log_fh = open(self.qoi_log_path, "wb")
+            try:
+                two_eps_inv2 = 2.0 / (self.epsilon * self.epsilon)
+                # accepted moves accumulate on the device (float64: exact
+                # counts far beyond any run); ``done`` is tracked on the
+                # host
+                n_accepted = torch.zeros((), dtype=torch.float64,
+                                         device=device)
+                n_drawn = 0
+                done = 0
+                while True:
+                    n_target = self._target(stats, two_eps_inv2)
+                    local_target = -(-n_target // n_chains)   # ceil
+                    if done >= local_target:
+                        break
+                    n = min(self.chunk_size, local_target - done)
+                    sstate, stats, n_acc = self._chunk(
+                        chunk_generator(next_seed(), gen_device), sstate,
+                        stats, n)
+                    n_accepted = n_accepted + n_acc
+                    done += n
+                    n_drawn += self.chunk_size * n_chains
+                sync((sstate, stats))
+            finally:
+                if self._log_fh is not None:
+                    self._log_fh.close()
+                    self._log_fh = None
+            self.timings["sampling_s"] = time.monotonic() - t_phase
         #: draws in the sampling phase (every chunk runs chunk_size draws)
         self.n_sampling_draws = n_drawn // n_chains
         self.p_accept = float(n_accepted) / max(n_drawn, 1)

@@ -25,6 +25,7 @@ it.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
@@ -336,7 +337,8 @@ class MonteCarloTwoLevel:
         self.tau_slow = float(tau_e)
         return int(min(100, max(self.t_sub_min, math.ceil(2.0 * tau))))
 
-    def _evaluate_difference_fused(self, generator, n_chains, dtype, device):
+    def _evaluate_difference_fused(self, generator, n_chains, dtype, device,
+                                   sampling_scope):
         from mlmcpathintegral_tpu_torch.convert import qm_planes, qm_s_cache
         t0 = time.monotonic()
         self.timings = {}
@@ -385,17 +387,19 @@ class MonteCarloTwoLevel:
         sync(carry)
         self.timings["tsub_update_s"] = time.monotonic() - t_phase
 
-        t_phase = time.monotonic()
-        n_accepted = torch.zeros((), dtype=torch.float32, device=device)
-        n_done = 0
-        local_target = -(-self.n_samples // n_chains)
-        while n_done < local_target:
-            n = min(self.chunk_size, local_target - n_done)
-            carry, n_acc = chunk(next_seed(), carry, n)
-            n_accepted = n_accepted + n_acc
-            n_done += n
-        sync(carry)
-        self.timings["sampling_s"] = time.monotonic() - t_phase
+        with sampling_scope or contextlib.nullcontext():
+            t_phase = time.monotonic()
+            n_accepted = torch.zeros((), dtype=torch.float32, device=device)
+            n_done = 0
+            local_target = -(-self.n_samples // n_chains)
+            while n_done < local_target:
+                n = min(self.chunk_size, local_target - n_done)
+                carry, n_acc = chunk(next_seed(), carry, n)
+                n_accepted = n_accepted + n_acc
+                n_done += n
+            sync(carry)
+            self.timings["sampling_s"] = time.monotonic() - t_phase
+        self.n_sampling_draws = self._drawn(n_done)
         self.elapsed_s = time.monotonic() - t0
         _, _, _, _, st_f, st_c, st_d, st_cs, st_slow = carry
         self.p_accept = float(n_accepted) / (n_done * n_chains)
@@ -406,18 +410,21 @@ class MonteCarloTwoLevel:
 
     def evaluate_difference(self, generator, n_chains: int,
                             dtype=torch.float32, device="cuda",
-                            verbose: bool = False):
+                            verbose: bool = False, sampling_scope=None):
         """Burn-in, then record n_samples of (Q_f, Q_c, Y); returns the
         statistics states by name (montecarlotwolevel.cc:38-79).
         ``generator``: a CPU ``torch.Generator`` (or an int seed for one)
         from which every chunk's seed pair and the set-up noise are drawn;
         ``device``: where the chains live, the card unless the caller asks
         for the CPU ("cuda" runs the kernels, which take float32; "cpu"
-        their plain versions, in any float dtype)."""
+        their plain versions, in any float dtype); ``sampling_scope``: a
+        context manager (a profiler, say) entered around the sampling
+        phase, outside its timer."""
         device = _cuda.run_device(device)
         if self._runs_fused(device):
             return self._evaluate_difference_fused(generator, n_chains,
-                                                   dtype, device)
+                                                   dtype, device,
+                                                   sampling_scope)
         t0 = time.monotonic()
         self.timings = {}
         next_seed, setup_gen = run_generators(generator, device)
@@ -461,24 +468,31 @@ class MonteCarloTwoLevel:
         sync(carry)
         self.timings["burnin_s"] = time.monotonic() - t_phase
 
-        t_phase = time.monotonic()
-        n_done = 0
-        local_target = -(-self.n_samples // n_chains)
-        while n_done < local_target:
-            n = min(self.chunk_size, local_target - n_done)
-            carry, n_acc = self._chunk(next_seed(), carry, n)
-            n_accepted = n_accepted + n_acc
-            n_done += n
-        sync(carry)
-        # the sampling phase's wall: the scope of the reference baseline's
-        # eff formula (burn-in and set-up excluded)
-        self.timings["sampling_s"] = time.monotonic() - t_phase
+        with sampling_scope or contextlib.nullcontext():
+            t_phase = time.monotonic()
+            n_done = 0
+            local_target = -(-self.n_samples // n_chains)
+            while n_done < local_target:
+                n = min(self.chunk_size, local_target - n_done)
+                carry, n_acc = self._chunk(next_seed(), carry, n)
+                n_accepted = n_accepted + n_acc
+                n_done += n
+            sync(carry)
+            # the sampling phase's wall: the scope of the reference baseline's
+            # eff formula (burn-in and set-up excluded)
+            self.timings["sampling_s"] = time.monotonic() - t_phase
+        self.n_sampling_draws = self._drawn(n_done)
         self.elapsed_s = time.monotonic() - t0
         _, _, st_f, st_c, st_d, st_cs, (sum_t, n_indep) = carry
         self.p_accept = float(n_accepted) / (n_done * n_chains)
         self.t_indep = float(sum_t) / max(float(n_indep), 1.0)
         return {"fine": st_f, "coarse": st_c, "diff": st_d,
                 "coarse_sampler": st_cs}
+
+    def _drawn(self, n_recorded: int) -> int:
+        """Samples a chain drew in a phase that recorded ``n_recorded``:
+        every chunk draws ``chunk_size``."""
+        return -(-n_recorded // self.chunk_size) * self.chunk_size
 
     def show_statistics(self, stats):
         print(self.stats_fine.summary(stats["fine"]))

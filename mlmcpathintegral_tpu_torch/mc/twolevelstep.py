@@ -70,3 +70,35 @@ class TwoLevelMetropolisStep:
         S_fine = torch.where(accept, S_fine_prime, state.S_fine)
         S_cond = torch.where(accept, S_cond_prime, state.S_cond)
         return TwoLevelState(theta, S_fine, S_cond), accept
+
+
+def level_hierarchy(fine_action, conditioned_fine_action_factory,
+                    n_level: int):
+    """(actions, steps) of an ``n_level`` hierarchy: the actions finest
+    first, each the coarse action of the one before, and the
+    TwoLevelMetropolisStep from level ell + 1 to level ell, its fill
+    ``conditioned_fine_action_factory(actions[ell])``."""
+    actions, steps = [fine_action], []
+    for ell in range(n_level - 1):
+        coarse = actions[ell].coarse_action()
+        cond = conditioned_fine_action_factory(actions[ell])
+        steps.append(TwoLevelMetropolisStep(coarse, actions[ell], cond))
+        actions.append(coarse)
+    return actions, steps
+
+
+def seed_hierarchy(actions, steps, x_coarsest, generator):
+    """Per-level states, finest first, seeded upward from the coarsest
+    level's ``x_coarsest``: each finer level the prolongation of the level
+    below with its fine points filled by its step's conditioned action, so
+    every level starts inside its proposal distribution."""
+    xs = [None] * len(actions)
+    xs[-1] = x_coarsest
+    C, dtype, device = x_coarsest.shape[0], x_coarsest.dtype, \
+        x_coarsest.device
+    for ell in range(len(actions) - 2, -1, -1):
+        x = actions[ell].initialise_state(generator, C, dtype, device)
+        x = actions[ell].prolongate(xs[ell + 1], x)
+        xs[ell] = steps[ell].conditioned_fine_action.fill_fine_points(
+            generator, x)
+    return xs

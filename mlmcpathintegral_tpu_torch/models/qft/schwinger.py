@@ -27,7 +27,9 @@ from mlmcpathintegral_tpu_torch.distributions.expcos import (
 from mlmcpathintegral_tpu_torch.distributions.rejection import uniform
 from mlmcpathintegral_tpu_torch.lattice2d import CoarseningType, Lattice2D
 from mlmcpathintegral_tpu_torch.models.base import Action, RenormalisationType
-from mlmcpathintegral_tpu_torch.utils.special import Phi_chit, mod_2pi
+from mlmcpathintegral_tpu_torch.utils.special import (
+    Phi_chit, Phi_chit_perturbative, Sigma_hat, mod_2pi,
+)
 
 
 class QuenchedSchwingerAction(Action):
@@ -263,6 +265,12 @@ class QuenchedSchwingerAction(Action):
     def chit_exact(self) -> float:
         return chit_analytical(self.beta, self.n_plaq)
 
+    def chit_perturbative(self) -> float:
+        return chit_perturbative(self.beta, self.n_plaq)
+
+    def chit_continuum_variance(self) -> float:
+        return chit_var_continuum(self.beta, self.n_plaq)
+
     def info_string(self):
         return f"QuenchedSchwinger({self.lattice}, beta={self.beta})"
 
@@ -270,3 +278,15 @@ class QuenchedSchwingerAction(Action):
 def chit_analytical(beta: float, n_plaq: int) -> float:
     """V chi_t = (P/beta) Phi(beta, P) (qoi2dsusceptibility.cc:30-34)."""
     return n_plaq / beta * Phi_chit(beta, n_plaq)
+
+
+def chit_perturbative(beta: float, n_plaq: int) -> float:
+    return n_plaq / beta * Phi_chit_perturbative(beta, n_plaq)
+
+
+def chit_var_continuum(beta: float, n_plaq: int) -> float:
+    """Continuum variance of V chi_t (qoi2dsusceptibility.cc:43-50)."""
+    zeta = 4.0 * math.pi**2 * beta / n_plaq
+    S2 = Sigma_hat(zeta, 2)
+    S4 = Sigma_hat(zeta, 4)
+    return S4 - S2 * S2

@@ -45,8 +45,8 @@ c_size = ctypes.c_size_t
 #: argtypes of every exported C function (all return a cudaError_t as int)
 _SIGNATURES = {
     "mlmc_max_smem_optin": [c_int, ctypes.POINTER(c_int)],
-    "mlmc_rng_fill": [c_ptr, c_ptr, c_ptr, c_u32, c_u32, c_int, c_int,
-                      c_int, c_int, c_int, c_int, c_ptr],
+    "mlmc_rng_fill": [c_ptr, c_ptr, c_ptr, c_u32, c_u32] + [c_int] * 9
+    + [c_ptr],
     "mlmc_schwinger_sweep": [c_ptr] * 5 + [c_int] * 8
     + [c_float, c_u32, c_u32, c_int, c_int, c_size, c_ptr],
     "mlmc_gff_sweep": [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,

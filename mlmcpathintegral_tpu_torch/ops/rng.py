@@ -177,6 +177,31 @@ RNG_FILL = _cuda.KernelCounter(
     "mlmcpathintegral_tpu/ops/pallas_rng.py:53")
 
 
+#: threads a block of rng_fill, and the most blocks along y (CUDA's limit)
+FILL_THREADS = 256
+MAX_GRID_Y = 65535
+MAX_FILL_WORDS = 2**31 - 1
+
+
+def fill_launch(n_sites: int, n_chains: int, n_steps: int, n_ctr: int):
+    """(threads a block, blocks along x, blocks along y) of an rng_fill
+    launch: x over the (chain, site) plane, one thread an id, y over the
+    steps, each block looping over steps gridDim.y apart where there are
+    more than 65 535.  The kernel indexes in 32 bits: a grid whose plane
+    or whole output passes 2^31 - 1 words is refused here, before any
+    launch."""
+    plane = n_chains * n_sites
+    total = plane * n_steps * n_ctr
+    if plane > MAX_FILL_WORDS or total > MAX_FILL_WORDS:
+        raise ValueError(
+            f"rng_fill indexes in 32 bits: {n_chains} chains x {n_sites} "
+            f"sites x {n_steps} steps x {n_ctr} counters = {total} words "
+            f"passes {MAX_FILL_WORDS}; fill it in smaller grids")
+    threads = min(FILL_THREADS, max(32, -(-plane // 32) * 32))
+    return (threads, max(1, -(-plane // threads)),
+            max(1, min(n_steps, MAX_GRID_Y)))
+
+
 def _check_stepless(step0, n_steps) -> None:
     if step0 is None and n_steps != 1:
         raise ValueError(f"a step-less stream has one step, got n_steps="
@@ -216,7 +241,9 @@ def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
     (2k+1, 2k+2)).  ``step0=None`` takes the step-less streams (no step
     index folded into the site lane; ``n_steps`` must be 1), which the GFF
     sweep kernel draws from.  Runs the kernel on the card unless
-    ``device`` is the CPU, where the plain version runs."""
+    ``device`` is the CPU, where the plain version runs.  The kernel
+    writes the bits as uint32; widening them to int64 is a pass of its
+    own after the launch."""
     device = _cuda.run_device(device)
     _check_stepless(step0, n_steps)
     if device.type == "cpu":
@@ -224,6 +251,7 @@ def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
                               n_steps=n_steps, n_ctr=n_ctr, step0=step0,
                               device=device)
     check_element_capacity(n_sites, n_chains)
+    launch = fill_launch(n_sites, n_chains, n_steps, n_ctr)
     seed1, seed2 = seed_pair(seed)
     shape = (n_steps, n_ctr, n_chains, n_sites)
     bits = torch.empty(shape, dtype=torch.int32, device=device)
@@ -233,7 +261,7 @@ def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
     err = _cuda.load_library().mlmc_rng_fill(
         bits.data_ptr(), uni.data_ptr(), nrm.data_ptr(), seed1, seed2,
         n_sites, n_chains, step0 or 0, n_steps, n_ctr, int(step0 is None),
-        _cuda.stream_ptr(device))
+        *launch, _cuda.stream_ptr(device))
     _cuda.check_status(err, "rng_fill kernel launch")
     RNG_FILL.launches += 1
     return bits.to(torch.int64) & M32, uni, nrm

@@ -8,7 +8,13 @@ from mlmcpathintegral_tpu_torch.samplers.exact import (
 from mlmcpathintegral_tpu_torch.samplers.heatbath import (
     HeatBathState, OverrelaxedHeatBathSampler,
 )
+from mlmcpathintegral_tpu_torch.samplers.hierarchical import (
+    HierarchicalSampler, HierarchicalState,
+)
 from mlmcpathintegral_tpu_torch.samplers.hmc import HMCSampler, HMCState
+from mlmcpathintegral_tpu_torch.samplers.multilevel import (
+    MultilevelSampler, MultilevelSamplerState,
+)
 from mlmcpathintegral_tpu_torch.samplers.schwingercluster import (
     QuenchedSchwingerClusterSampler, SchwingerClusterState,
 )

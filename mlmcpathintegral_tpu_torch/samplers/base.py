@@ -11,6 +11,20 @@ import abc
 import torch
 
 
+def own_generator(sampler, generator: torch.Generator,
+                  device) -> torch.Generator:
+    """A generator of the sampler's own, seeded once from ``generator``:
+    on the CPU for a ``host_seeded`` sampler (its kernels take their seeds
+    as host words, so a CPU generator serves every draw without a read
+    from the card), else on ``device``.  A sampler nested in another (the
+    coarsest level of the hierarchical and multilevel samplers) draws from
+    it, whatever generator the outer draws take."""
+    seed = int(torch.randint(2**62, (1,), generator=generator,
+                             device=generator.device))
+    gen_device = torch.device("cpu") if sampler.host_seeded else device
+    return torch.Generator(device=gen_device).manual_seed(seed)
+
+
 def kernel_seed(generator: torch.Generator) -> torch.Tensor:
     """An int32[2] kernel seed pair drawn from ``generator`` (on the
     generator's device; the kernels take it as two host words)."""
@@ -36,6 +50,11 @@ class Sampler(abc.ABC):
     @abc.abstractmethod
     def draw(self, generator, state):
         """One draw on all chains: (state, accept[n_chains] bool)."""
+
+    def set_state(self, state, x):
+        """Replace the current position (MCMCStep::set_state).  Samplers
+        with cached action values override it to refresh their caches."""
+        return state._replace(x=x)
 
     def x_of(self, state):
         """Current position [n_chains, ndof] of a sampler state."""

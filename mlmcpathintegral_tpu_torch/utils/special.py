@@ -159,6 +159,17 @@ def Phi_chit(beta: float, n_plaq: int) -> float:
     return float(phi_chit)
 
 
+def Phi_chit_perturbative(beta: float, n_plaq: int) -> float:
+    """Semiclassical expansion of Phi_chit, valid for large beta."""
+    xi = n_plaq / beta
+    z = 1.0 / beta
+    S2 = Sigma_hat(xi, 2)
+    S4 = Sigma_hat(xi, 4)
+    phi_lo = 1.0 - xi * S2
+    phi_nlo = 0.5 - xi * S2 + 0.25 * xi * xi * (S4 - S2 * S2)
+    return (phi_lo + z * phi_nlo) / (4.0 * math.pi**2)
+
+
 def gff_phi_squared_analytical(mass: float, Mt_lat: int, Mx_lat: int) -> float:
     """Spectral sum for <phi^2> of the 2-D Gaussian free field."""
     mu2 = mass * mass / (Mt_lat * Mx_lat)

@@ -21,7 +21,7 @@ from mlmcpathintegral_tpu.mc import MonteCarloSingleLevel as JSingleLevel
 from mlmcpathintegral_tpu.utils import config as jconfig
 from mlmcpathintegral_tpu.utils import statistics as jstats
 from mlmcpathintegral_tpu_torch import convert
-from mlmcpathintegral_tpu_torch.drivers import common, qft
+from mlmcpathintegral_tpu_torch.drivers import common, qft, qm
 from mlmcpathintegral_tpu_torch.mc import MonteCarloSingleLevel
 from mlmcpathintegral_tpu_torch.mc import singlelevel as msl
 from mlmcpathintegral_tpu_torch.samplers import ExactState, Sampler
@@ -244,9 +244,10 @@ parallel:
     (GFF_SMOKE.replace("'singlelevel'", "'twolevel'"), "open item 11"),
     (GFF_SMOKE.replace("'singlelevel'", "'multilevel'"), "open item 11"),
     (GFF_SMOKE.replace("'singlelevel'", "'twolevel'").replace(
-        "'gff'", "'quenchedschwinger'"), "open item 9"),
+        "'gff'", "'quenchedschwinger'").replace("'rotate'", "'temporal'"),
+     "open item 9"),
     (GFF_SMOKE.replace("'gff'", "'nonlinearsigma'"), "open item 12"),
-    (GFF_SMOKE.replace("'exact'", "'hierarchical'"), "open item 13"),
+    (GFF_SMOKE.replace("'exact'", "'hierarchical'"), "open item 11"),
     (GFF_SMOKE.replace("'singlelevel'", "'multilevel'").replace(
         "'gff'", "'quenchedschwinger'").replace("'rotate'", "'temporal'"),
      "open item 9"),
@@ -259,7 +260,7 @@ def test_unported_combinations_raise(tmp_path, text, match):
 
 
 def test_driver_entry_points_default_to_the_card(tmp_path):
-    for fn in (qft.main, qft.run, common.parallel_setup):
+    for fn in (qft.main, qft.run, qm.main, qm.run, common.parallel_setup):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     n, dtype, dev = common.parallel_setup(
         tconfig.read_parameter_file(_cfg(tmp_path, GFF_SMOKE)), "cpu")
@@ -268,3 +269,5 @@ def test_driver_entry_points_default_to_the_card(tmp_path):
         # no silent CPU run: without a card the default raises
         with pytest.raises(RuntimeError, match="no CUDA device"):
             qft.main([str(_cfg(tmp_path, GFF_SMOKE))])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            qm.main([str(REPO / "configs/qm_harmonic_singlelevel.in")])

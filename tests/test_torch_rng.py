@@ -113,3 +113,58 @@ def test_counters_stay_zero_on_cpu():
                   device="cpu")
     assert [(c.launches, c.plain_cuda_calls)
             for c in ops.counters()] == before
+
+
+@pytest.mark.parametrize("grid, want", [
+    # (sites, chains, steps, counters): (threads, blocks x, blocks y)
+    ((64, 1024, 4, 8), (256, 256, 4)),          # the kernel table's grid
+    ((64, 4096, 4, 32), (256, 1024, 4)),        # 33.5M words, stepped
+    ((256, 4096, 1, 32), (256, 4096, 1)),       # 33.5M words, step-less
+    ((16, 4, 2304, 320), (64, 1, 2304)),        # the long parity grid
+    ((64, 512, 1, 3), (256, 128, 1)),           # the JAX probe's grid
+    ((5, 3, 2, 6), (32, 1, 2)),                 # a ragged plane
+    ((1, 1, 70000, 1), (32, 1, 65535)),         # steps looped along y
+])
+def test_rng_fill_launch_layout(grid, want):
+    threads, bx, by = trng.fill_launch(*grid)
+    assert (threads, bx, by) == want
+    plane = grid[0] * grid[1]
+    assert threads % 32 == 0 and bx * threads >= plane > (bx - 1) * threads
+    assert by <= trng.MAX_GRID_Y
+
+
+@pytest.mark.parametrize("grid", [(2**16, 2**15, 1, 1),     # plane 2^31
+                                  (64, 4096, 16, 512),       # 2^31 words
+                                  (64, 4096, 1, 8193)])      # 2^31 + 2^18
+def test_rng_fill_refuses_what_32_bit_indices_would_wrap(grid):
+    with pytest.raises(ValueError, match="32 bits"):
+        trng.fill_launch(*grid)
+
+
+@pytest.mark.parametrize("step0, n_steps", [(None, 1), (0, 3), (4093, 2)])
+def test_rng_fill_plain_matches_jax_grid(step0, n_steps):
+    """The whole grid of rng_fill's plain version against JAX's
+    CounterRng, stream by stream: bits and uniforms identical, normals of
+    the word pairs to 1e-6 (float32), for the step-less streams (the GFF
+    sweep's, P2) and stepped ones."""
+    S, Cn, K = 6, 5, 7
+    bits, uni, nrm = trng.rng_fill_plain((77, -5), n_sites=S, n_chains=Cn,
+                                         n_steps=n_steps, n_ctr=K,
+                                         step0=step0, device="cpu")
+    site = jnp.arange(S, dtype=jnp.uint32)[None, :]
+    chain = jnp.arange(Cn, dtype=jnp.uint32)[:, None]
+    for st in range(n_steps):
+        jr = jrng.CounterRng(
+            jnp.uint32(77), site, chain,
+            jnp.asarray(np.int32(-5)).astype(jnp.uint32),
+            step=None if step0 is None else jnp.uint32(step0 + st))
+        jb = np.stack([np.asarray(jr.bits()) for _ in range(K)])
+        np.testing.assert_array_equal(bits[st].numpy(), jb.astype(np.int64))
+        jr.ctr = 0
+        ju = np.stack([np.asarray(jr.uniform(jnp.float32))
+                       for _ in range(K)])
+        np.testing.assert_array_equal(uni[st].numpy(), ju)
+        jr.ctr = 0
+        jn = np.stack([np.asarray(jr.normal(jnp.float32))
+                       for _ in range(K // 2)])
+        np.testing.assert_allclose(nrm[st].numpy(), jn, rtol=0, atol=1e-6)
