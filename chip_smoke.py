@@ -28,7 +28,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                outputs (two trees compare by it), its layout (lanes a
                chain, chains a block, branch: warp, block or global),
                registers a thread and resident warps an SM, and the
-               rejection rounds of its plain version;
+               rejection rounds of its plain version; and run 12's launch
+               (phase 16: one draw of the temporally coarsened Schwinger
+               file's coarse level, 8 sites in x by 4 in t, beta_c = 2,
+               4096 chains; ``run12_launch``) with >= SHARE_MIN of the
+               chains within 1e-4 mod 2 pi, its device ms, plain ms,
+               bound and layout;
   4. twolevel - the two-level kernel at the main path's launch (8x8,
                beta=4, 1024 chains, n_steps=256, t_sub=8) against the
                plain version on its per-step y, accept, qc and ec traces
@@ -150,14 +155,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                coarse chains, the multilevel sampler (K5), the
                double-well two-level run (K5), the rotor MLMC with plain
                cluster coarse chains, and the Schwinger two-level run
-               through ``drivers.qft.run`` (K3 on its coarse chains); each
-               within 4 sigma of its oracle (runs 2 and 3 the JAX
-               package's estimate of their file, their methods' own bias
-               beside it; run 4 the C++ run's), its path's kernels
-               launched, no plain-version call on CUDA, and the phase
-               that records its samples under the profiler, through the
-               drivers' ``sampling_scope``, for its host and device ms a
-               draw (``QM_RUNS``, ``REFERENCES``, ``ProfiledPhase``).
+               through ``drivers.qft.run`` (K3 on its coarse chains); then
+               the QFT files through ``drivers.qft.run``: the sigma file
+               single-level (run 7) and two-level (8), after run 7 a short
+               chain of the 2-D cluster sampler held to run 7's chi_m
+               (``sigma_cluster_check``), the GFF file two-level with
+               heat-bath (9) and exact (10) coarse chains and multilevel
+               (11), and the Schwinger file coarsened in time only,
+               two-level with K3 on its coarse chains (12); each within 4
+               sigma of its oracle (runs 2, 3, 7, 8 and 11 the JAX
+               package's estimate of their file and method, their
+               distance from the analytic or single-level value beside
+               it; run 4 the C++ run's; ``BESIDE`` the values reported and
+               not gated), its path's kernels launched, no plain-version
+               call on CUDA, and the phase that records its samples under
+               the profiler, through the drivers' ``sampling_scope``, for
+               its host and device ms a draw (``QM_RUNS``,
+               ``REFERENCES``, ``ProfiledPhase``).
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; each kernel of a path must have launched in it.  The
@@ -523,6 +537,25 @@ QM_RUNS = (
      {("general", "method"): "twolevel",
       ("twolevelmc", "sampler"): "heatbath",
       ("heatbath", "use_pallas"): True}, ("schwinger_sweep_chain",), {}),
+    ("7_sigma_singlelevel_heatbath", "qft",
+     "baselines/configs/ref_qft_sigma_heatbath.in", {}, (),
+     {("singlelevelmc", "n_burnin"): 2000}),
+    ("8_sigma_twolevel", "qft", "baselines/configs/ref_qft_sigma_heatbath.in",
+     {("general", "method"): "twolevel"}, (), {}),
+    ("9_gff_twolevel_heatbath", "qft",
+     "baselines/configs/ref_qft_gff_twolevel.in", {}, (),
+     {("twolevelmc", "n_burnin"): 256}),
+    ("10_gff_twolevel_exact", "qft",
+     "baselines/configs/ref_qft_gff_twolevel.in",
+     {("twolevelmc", "sampler"): "exact"}, (), {}),
+    ("11_gff_multilevel", "qft", "baselines/configs/ref_qft_gff_twolevel.in",
+     {("general", "method"): "multilevel"}, (), {}),
+    ("12_schwinger_temporal_twolevel", "qft",
+     "baselines/configs/ref_qft_schwinger_mlmc.in",
+     {("lattice", "coarsening"): "temporal",
+      ("general", "method"): "twolevel",
+      ("twolevelmc", "sampler"): "heatbath",
+      ("heatbath", "use_pallas"): True}, ("schwinger_sweep_chain",), {}),
 )
 #: runs held to a reference run's estimate and error (combined sigma) in
 #: place of the analytic value: the double well has none (the C++ run's
@@ -543,11 +576,46 @@ QM_RUNS = (
 #:       baselines/configs/ref_qm_harmonic_hmc.in \
 #:       --set "singlelevelmc.sampler='multilevel'" \
 #:       --chains 1024 --samples 1024
+#: The sigma model has no analytic value: run 7 is held to the JAX
+#: package's single-level estimate of its file (CPU, f64, seed 0, 1024
+#: chains x 2048 samples, burn-in 2000, tau_int 6.10, 530 s).  The two
+#: multilevel-family runs whose files leave their screened chains far from
+#: equilibrium (ROADMAP W6, W7) are held to the JAX package's estimate of
+#: the same file and method at the run's 4096 chains (CPU, f64, seed 0):
+#: run 8 (the sigma file two-level: acceptance 4%, burn-in 100 samples;
+#: 869 s) and run 11 (the GFF file multilevel: tau_int of Y_1 40; 212 s):
+#:   JAX_PLATFORMS=cpu python scripts/jax_qft_reference.py \
+#:       baselines/configs/ref_qft_sigma_heatbath.in \
+#:       --chains 1024 --samples 2048 --burnin 2000
+#:   JAX_PLATFORMS=cpu python scripts/jax_qft_reference.py \
+#:       baselines/configs/ref_qft_sigma_heatbath.in \
+#:       --set "general.method='twolevel'" --chains 4096
+#:   JAX_PLATFORMS=cpu python scripts/jax_qft_reference.py \
+#:       baselines/configs/ref_qft_gff_twolevel.in \
+#:       --set "general.method='multilevel'" --chains 4096
+SIGMA_JAX = (73.82355312781698, 0.036206880036453615)
 REFERENCES = {"4_quartic_twolevel": (0.599879, 0.001528),
               "2_rotor_hierarchical_heatbath": (0.12326669692993164,
                                                 0.0003980669737580518),
               "3_harmonic_multilevel_sampler": (0.5164759683691835,
-                                                0.0004083067131027976)}
+                                                0.0004083067131027976),
+              "7_sigma_singlelevel_heatbath": SIGMA_JAX,
+              "8_sigma_twolevel": (78.30223210705434, 0.3367599057038013),
+              "11_gff_multilevel": (0.32914387327060385,
+                                    0.0005907441427202397)}
+#: values reported beside a run's gate, not gating it (estimate, error):
+#: the C++ run of the sigma file (baselines/ref_baselines.json), the JAX
+#: package's estimate on its original accelerator (BENCH_detail.json
+#: sigma_heatbath) and, for run 8, its single-level estimate on the CPU;
+#: the C++ run's fine <phi^2> of the GFF file, which takes another mass
+#: convention than phi_squared_analytical
+SIGMA_BESIDE = {"cpp": (73.554551, 0.127645), "jax_bench": (73.8292, 0.0355)}
+GFF_BESIDE = {"cpp_fine_other_mass_convention": (0.302185, 0.00013)}
+BESIDE = {"7_sigma_singlelevel_heatbath": SIGMA_BESIDE,
+          "8_sigma_twolevel": {"jax_singlelevel": SIGMA_JAX,
+                               **SIGMA_BESIDE},
+          "9_gff_twolevel_heatbath": GFF_BESIDE,
+          "10_gff_twolevel_exact": GFF_BESIDE, "11_gff_multilevel": GFF_BESIDE}
 
 
 class ProfiledPhase:
@@ -609,13 +677,62 @@ def path_f_coarsest(root, name):
     return action, cfg
 
 
-def qm_driver_phase(dev, root):
-    """Drive drivers.qm.run (and drivers.qft.run for the Schwinger
-    two-level run) on the card for each run of QM_RUNS, the launch
-    counters set to 0 just before each, the phase that records its
-    samples under the profiler (ProfiledPhase); gate each estimate at 4
-    sigma from its oracle.  Returns (rows, launches by kernel summed over the runs,
-    ok)."""
+def run12_launch(root, dev, links):
+    """K3 against its plain version at run 12's launch: the coarse action
+    of run 12's file (built by the QFT driver's own reader), one draw of
+    the run's heat-bath sweeps on its chains.  Returns the check's fields
+    (share of chains within 1e-4 mod 2 pi, largest difference, device ms,
+    plain ms, bound, layout)."""
+    from mlmcpathintegral_tpu_torch.drivers import qft as qft_driver
+    from mlmcpathintegral_tpu_torch.ops import _cuda, schwinger
+    from mlmcpathintegral_tpu_torch.perf_probe import (
+        cuda_ms, kernel_device_ms,
+    )
+    cfg = qm_run_config(root, next(r for r in QM_RUNS
+                                   if r[0].startswith("12_")))
+    act = qft_driver.build_action(
+        cfg, qft_driver._method_and_lattice(cfg)[1]).coarse_action()
+    lat, hb, C = act.lattice, cfg["heatbath"], cfg["parallel"]["n_chains"]
+    kw = dict(beta=act.beta, Mt=lat.Mt_lat, Mx=lat.Mx_lat,
+              n_overrelax=hb["n_sweep_overrelax"],
+              n_heatbath=hb["n_sweep_heatbath"])
+    x = links(C, act.ndof)
+    for i in range(20):
+        x = schwinger.schwinger_sweep(x, (11, i), **kw)
+    k = schwinger.schwinger_sweep(x, (12, 13), **kw)
+    p, rounds, plain_ms = tallied(
+        lambda: schwinger.schwinger_sweep_chain_plain(x, (12, 13),
+                                                      n_steps=1, **kw)[0])
+    launch = lambda: schwinger.schwinger_sweep(x, (12, 13), **kw)  # noqa
+    ms, _ = kernel_device_ms(launch, 50, "schwinger_sweep")
+    ms_from = "profiler"
+    if ms is None:
+        ms, ms_from = cuda_ms(launch, 50), "CUDA events"
+    err = torch.remainder(k.double() - p.double() + math.pi,
+                          2 * math.pi) - math.pi
+    # a single draw writes no Q or E trace
+    nbytes, nops = work_k3(C, lat.Mx_lat, lat.Mt_lat, 1, rounds["expcos"])
+    nbytes -= 4 * 2 * C
+    return {"shape": f"Mx={lat.Mx_lat} x Mt={lat.Mt_lat}, beta_c="
+                     f"{act.beta}, {C} chains, {kw['n_overrelax']} + "
+                     f"{kw['n_heatbath']} sweeps, n_steps=1",
+            "share_within_1e-4": angle_share(k, p, TOL),
+            "max_abs_err": float(err.abs().max()), "sha256": sha256_of([k]),
+            "ms": ms, "ms_from": ms_from, "plain_ms": plain_ms,
+            "rejection_rounds": rounds,
+            "bound": bound_ms_row(nbytes, nops),
+            "layout": launch_layout(schwinger.sweep_launch(
+                lat.Mt_lat, lat.Mx_lat, C, _cuda.max_smem_optin(0)),
+                schwinger.sweep_attrs(lat.Mt_lat, lat.Mx_lat, C))}
+
+
+def qm_driver_phase(dev, root, runs=QM_RUNS):
+    """Drive drivers.qm.run and drivers.qft.run on the card for each of
+    ``runs`` (QM_RUNS), the launch counters set to 0 just before each, the
+    phase that records its samples under the profiler (ProfiledPhase);
+    gate each estimate at 4 sigma from its oracle, and after run 7 the
+    cluster chain's (sigma_cluster_check).  Returns (rows, launches by
+    kernel summed over the runs, ok)."""
     import io
     import warnings
 
@@ -658,7 +775,7 @@ def qm_driver_phase(dev, root):
           and not rows["float64_use_pallas"]["launches"]
           and not rows["float64_use_pallas"]["plain_calls_on_cuda"])
     totals = {}
-    for run in QM_RUNS:
+    for run in runs:
         name, _, path, settings, kernels, cuts = run
         cfg = qm_run_config(root, run)
         phase = ProfiledPhase()
@@ -706,6 +823,11 @@ def qm_driver_phase(dev, root):
                    "profile_s": phase.profile_s},
                "host_ms_per_draw": phase.host_ms / max(draws, 1),
                "device_ms_per_draw": phase.device_busy_ms / max(draws, 1),
+               "beside": {
+                   k: {"value": v, "error": e,
+                       "sigma_dev": (res["numerical"] - v)
+                       / math.hypot(res["error"], e)}
+                   for k, (v, e) in BESIDE.get(name, {}).items()},
                "report_tail": lines[-2:]}
         rows[name] = row
         missing = [k for k in kernels if launches.get(k, 0) == 0]
@@ -717,7 +839,54 @@ def qm_driver_phase(dev, root):
                   f"kernels not launched {missing}, plain calls on CUDA "
                   f"{plain}", file=sys.stderr, flush=True)
             ok = False
+        if name == "7_sigma_singlelevel_heatbath":
+            ok &= sigma_cluster_check(dev, root, run, row)
     return rows, totals, ok
+
+
+def sigma_cluster_check(dev, root, run, row, n_burnin=30, n_keep=64):
+    """A short chain of the 2-D Wolff cluster sampler (a library sampler:
+    no driver selects it) at run 7's lattice, beta and chains, its
+    clusteralgorithm section's updates a draw, ``n_burnin`` draws of
+    burn-in and ``n_keep`` recorded: its chi_m within 4 sigma (combined)
+    of run 7's.  Emits its line; returns whether it held."""
+    from mlmcpathintegral_tpu_torch.drivers import qft as qft_driver
+    from mlmcpathintegral_tpu_torch.samplers import Cluster2DSampler
+    from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
+    from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
+    cfg = qm_run_config(root, run)
+    action = qft_driver.build_action(
+        cfg, qft_driver._method_and_lattice(cfg)[1])
+    sampler = Cluster2DSampler(action, n_burnin=n_burnin,
+                               n_updates=cfg["clusteralgorithm"]["n_updates"])
+    C = cfg["parallel"]["n_chains"]
+    qoi = qft_driver.select_qoi(action)[0](action)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.monotonic()
+    st = sampler.prepare(gen, C, torch.float32, dev)
+    qs = []
+    for _ in range(n_keep):
+        st, _ = sampler.draw(gen, st)
+        qs.append(qoi(st.x))
+    stats = Statistics("chi_m[cluster2d]", 20)
+    s = stats_mod.record_block(stats.init(C, torch.float32, dev),
+                               torch.stack(qs))
+    avg, err = stats.average(s), stats.error(s)
+    torch.cuda.synchronize()
+    dev_sigma = abs(avg - row["estimate"]) / math.hypot(err, row["error"])
+    out = {"lattice": str(action.lattice), "beta": action.beta,
+           "n_chains": C, "n_burnin": sampler.n_burnin,
+           "n_updates": sampler.n_updates, "draws_recorded": n_keep,
+           "estimate": avg, "error": err, "tau_int": stats.tau_int(s),
+           "run_7": [row["estimate"], row["error"]],
+           "sigma_dev_from_run_7": dev_sigma,
+           "wall_s": time.monotonic() - t0}
+    emit({"phase": "qm_driver", "run": "7b_sigma_cluster2d", **out})
+    if not math.isfinite(avg) or dev_sigma > 4.0:
+        print(f"chip_smoke: the cluster chain's chi_m is {dev_sigma:.2f} "
+              f"sigma from run 7's", file=sys.stderr, flush=True)
+        return False
+    return True
 
 
 def main() -> int:
@@ -881,15 +1050,26 @@ def main() -> int:
     sweep_res.update(ms=ms, plain_ms=plain_ms,
                      main_shape="4x4, 1024 chains, n_steps=2048",
                      layout=k3_layout, rejection_rounds=k3_rounds)
+    # run 12's launch (phase 16): one draw of the heat-bath sampler on the
+    # coarse level of the Schwinger file coarsened in time only, 8 sites
+    # in x by 4 in t (a field that is not square), the run's chains, from
+    # links equilibrated by the kernel itself
+    r12 = run12_launch(root, dev, links)
+    sweep_res["run_12"] = r12
     emit({"phase": "sweep", **sweep_res})
     if or_err > 1e-5 or not sweep_res["chain_equals_stepwise"] \
-            or min(shares.values()) < SHARE_MIN or not main_ok:
+            or min(shares.values()) < SHARE_MIN or not main_ok \
+            or r12["share_within_1e-4"] < SHARE_MIN:
         fail("sweep kernel disagrees with its plain version")
     sweep_row = dict(max_abs_err=main_rep["max_abs_err_while_together"],
                      ms=ms, plain_ms=plain_ms, **bound_ms_row(*work_k3(
                          1024, 4, 4, 2048, k3_rounds["expcos"])),
                      rejection_rounds=k3_rounds, layout=k3_layout["4x4"],
-                     sha256_main_launch=main_rep["sha256"])
+                     sha256_main_launch=main_rep["sha256"],
+                     max_abs_err_run_12=r12["max_abs_err"],
+                     ms_run_12=r12["ms"], ms_from_run_12=r12["ms_from"],
+                     plain_ms_run_12=r12["plain_ms"],
+                     bound_ms_run_12=r12["bound"]["bound_ms"])
 
     # ---- 4. K4: two-level chain -----------------------------------------
     def carry(beta, C=1024):
@@ -1673,6 +1853,8 @@ def main() -> int:
     # the qm_driver phase's launches of its path's kernels (K3, K8, K5)
     for i in (0, 3, 4):
         rows[i]["launches_qm_driver"] = qm_launches[rows[i]["name"]]
+    rows[0]["launches_run_12"] = qm_rows["12_schwinger_temporal_twolevel"][
+        "launches"][ops.SWEEP.name]
     rows[4]["launches_path_C"] = rep_c["launches"][hmc.HMC.name]
     device_functions = [{
         "name": "CounterRng", "route": "cuda", "source": ops.RNG_FILL.source,

@@ -16,10 +16,13 @@ or hybrid cluster coarse chains (the unfused path); the topological rotor
 with its heat-bath and Wolff cluster samplers; the QM family: the
 harmonic and quartic oscillators, HMC on the fused trajectory kernel, the
 exact harmonic sampler, the QM conditioned fills and the two-level method
-``MonteCarloTwoLevel`` with its fused QM chain kernel; and the Gaussian
-free field with its fused sweep kernel, the single-level method
-``MonteCarloSingleLevel``, the config reader and the QFT driver
-(``python -m mlmcpathintegral_tpu_torch.drivers.qft``).
+``MonteCarloTwoLevel`` with its fused QM chain kernel; the Gaussian
+free field with its fused sweep kernel and its conditioned fill; the
+O(3) sigma model with its heat bath, conditioned fill and 2-D cluster
+sampler; the Gaussian and semi-coarsened Schwinger fills; the
+single-level method ``MonteCarloSingleLevel``, the config reader and the
+QM and QFT drivers (``python -m mlmcpathintegral_tpu_torch.drivers.qft``),
+which take every model, method and coarsening the JAX drivers take.
 """
 
 __version__ = "0.1.0"

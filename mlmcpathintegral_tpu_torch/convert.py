@@ -2,11 +2,13 @@
 
 The two packages hold the same state in the same layouts — link fields
 [C, 2*Mx*Mt] in the reference's linear order, GFF fields [C, N] (vertex
-l = Mt*j + i, or the rotated lattice's order), rotor paths [C, M],
+l = Mt*j + i, or the rotated lattice's order), sigma-model angle states
+[C, 2N] ((theta, phi) a vertex, the same vertex order), rotor paths [C, M],
 ``TwoLevelState``, ``StatsState``, the sampler states (``HeatBathState``,
-``ClusterState``, ``SchwingerClusterState(x, psi)``, ``HMCState(x, dt)``,
-``ExactState``), the per-level chunk carries (nested tuples of those and of
-0-d counters) — as JAX arrays and as torch tensors.  This module
+``ClusterState``, ``Cluster2DState``, ``SchwingerClusterState(x, psi)``,
+``HMCState(x, dt)``, ``ExactState``), the per-level chunk carries (nested
+tuples of those and of 0-d counters) — as JAX arrays and as torch
+tensors.  This module
 carries such state across, as numpy arrays, in both directions:
 :func:`to_torch` takes any nesting of tuples/lists/NamedTuples with
 array-like leaves (numpy or JAX arrays) and returns the port's types;
@@ -23,6 +25,7 @@ import torch
 
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelState
 from mlmcpathintegral_tpu_torch.samplers.cluster import ClusterState
+from mlmcpathintegral_tpu_torch.samplers.cluster2d import Cluster2DState
 from mlmcpathintegral_tpu_torch.samplers.exact import ExactState
 from mlmcpathintegral_tpu_torch.samplers.heatbath import HeatBathState
 from mlmcpathintegral_tpu_torch.samplers.hmc import HMCState
@@ -34,7 +37,8 @@ from mlmcpathintegral_tpu_torch.utils.statistics import StatsState
 #: the port's state classes, by the class name both packages use
 PORT_TYPES = {cls.__name__: cls
               for cls in (HeatBathState, ClusterState, SchwingerClusterState,
-                          TwoLevelState, StatsState, HMCState, ExactState)}
+                          TwoLevelState, StatsState, HMCState, ExactState,
+                          Cluster2DState)}
 
 
 def _is_namedtuple(x) -> bool:

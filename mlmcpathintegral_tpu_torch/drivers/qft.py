@@ -6,15 +6,13 @@
         [--device cpu] [--seed 0]
 
 Runs on the card unless ``--device cpu`` asks for the CPU (where the
-kernels' plain versions run).  Ported: the Gaussian free field
-single-level (heat bath, with ``heatbath: use_pallas`` on the fused sweep
-kernel, or exact draws) and the quenched Schwinger model single-level
-(any sampler, the hierarchical and multilevel ones included, with the
-average-plaquette report), two-level and multilevel.  The GFF's
-hierarchical and multilevel samplers and methods and the O(3) sigma model
-raise ``NotImplementedError`` naming their ROADMAP.md item.  :func:`run`
-returns the result (estimate, error, analytical value, timings) as a
-dict.
+kernels' plain versions run).  The quenched Schwinger model (any
+coarsening, with the average-plaquette report), the Gaussian free field
+and the O(3) nonlinear sigma model, each single-level (any sampler, the
+hierarchical and multilevel ones included), two-level and multilevel; as
+in the reference (driver_qft.cc:406-411), the multilevel method is
+refused for the sigma model.  :func:`run` returns the result (estimate,
+error, analytical value, timings) as a dict.
 """
 
 from __future__ import annotations
@@ -24,8 +22,14 @@ import sys
 
 import torch
 
+from mlmcpathintegral_tpu_torch.conditioned.gff import (
+    GFFConditionedFineAction,
+)
 from mlmcpathintegral_tpu_torch.conditioned.schwinger import (
     make_schwinger_conditioned_fine_action,
+)
+from mlmcpathintegral_tpu_torch.conditioned.sigma import (
+    NonlinearSigmaConditionedFineAction,
 )
 from mlmcpathintegral_tpu_torch.drivers.common import (
     SAMPLER_CHOICES, banner, make_sampler_factory, parallel_setup, report,
@@ -37,6 +41,9 @@ from mlmcpathintegral_tpu_torch.mc.twolevel import (
 )
 from mlmcpathintegral_tpu_torch.models.base import RenormalisationType
 from mlmcpathintegral_tpu_torch.models.qft.gff import GFFAction
+from mlmcpathintegral_tpu_torch.models.qft.nonlinearsigma import (
+    NonlinearSigmaAction, qoi_magnetic_susceptibility,
+)
 from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
     QuenchedSchwingerAction,
 )
@@ -78,14 +85,27 @@ def build_action(config, lattice):
         sec = Section(config, "gff",
                       defaults={"mass": 1.0, "renormalisation": "none"})
         return GFFAction(lattice, mass=sec.get_float("mass", positive=True))
-    raise NotImplementedError("the O(3) nonlinear sigma model is not ported "
-                              "yet (ROADMAP.md, open item 12)")
+    sec = Section(config, "nonlinearsigma",
+                  defaults={"beta": 1.0, "renormalisation": "none"})
+    return NonlinearSigmaAction(
+        lattice, beta=sec.get_float("beta", positive=True),
+        renormalisation=RENORM[sec.get_string("renormalisation")])
 
 
 def select_qoi(action):
     if isinstance(action, QuenchedSchwingerAction):
         return qoi_2d_susceptibility, "V chi_t"
-    return qoi_2d_phi_squared, "<phi^2>"
+    if isinstance(action, GFFAction):
+        return qoi_2d_phi_squared, "<phi^2>"
+    return qoi_magnetic_susceptibility, "chi_m"
+
+
+def select_cond_factory(action):
+    if isinstance(action, QuenchedSchwingerAction):
+        return make_schwinger_conditioned_fine_action
+    if isinstance(action, GFFAction):
+        return GFFConditionedFineAction
+    return NonlinearSigmaConditionedFineAction
 
 
 def analytical_results(action):
@@ -94,30 +114,18 @@ def analytical_results(action):
         return {"analytical": action.chit_exact(),
                 "perturbative": action.chit_perturbative(),
                 "continuum variance": action.chit_continuum_variance()}
-    return {"analytical": action.phi_squared_analytical()}
+    if isinstance(action, GFFAction):
+        return {"analytical": action.phi_squared_analytical()}
+    return {}
 
 
-def _gff_cond_factory(action):
-    raise NotImplementedError(
-        "the GFF's multilevel methods and hierarchical samplers need the "
-        "conditioned GFF fill (conditioned/gff.py), not ported yet "
-        "(ROADMAP.md, open item 11)")
+#: the line the reference prints for a refused combination
+SIGMA_MULTILEVEL_ERROR = ("ERROR: multilevel method not supported for the "
+                          "nonlinear sigma model (matches "
+                          "driver_qft.cc:406-411)")
 
 
-def select_cond_factory(action):
-    if isinstance(action, QuenchedSchwingerAction):
-        return make_schwinger_conditioned_fine_action
-    return _gff_cond_factory
-
-
-def run(config, device="cuda", seed=0, sampling_scope=None):
-    """Run the configuration (a dict from ``read_parameter_file``) on
-    ``device``; prints the reference driver's report and returns
-    {"method", "action", "qoi", "numerical", "error", "analytical",
-    "sigma_dev", "timings", ...}.  ``sampling_scope``: a context manager
-    (a profiler, say) the method enters around the phase that records its
-    samples."""
-    n_chains, dtype, device = parallel_setup(config, device)
+def _method_and_lattice(config):
     general = Section(config, "general", defaults={"method": "singlelevel"})
     method = general.get_string("method",
                                 {"singlelevel", "twolevel", "multilevel"})
@@ -127,15 +135,41 @@ def run(config, device="cuda", seed=0, sampling_scope=None):
     lattice = Lattice2D(lat_sec.get_int("Mt_lat", positive=True),
                         lat_sec.get_int("Mx_lat", positive=True),
                         COARSEN[lat_sec.get_string("coarsening")])
+    return method, lattice
 
+
+def refusal(config):
+    """The reference's error line for a combination it refuses (the
+    multilevel method on the sigma model), else None."""
+    qft = Section(config, "quantumfieldtheory",
+                  defaults={"action": "quenchedschwinger"})
+    if (qft.get_string("action") == "nonlinearsigma"
+            and _method_and_lattice(config)[0] == "multilevel"):
+        return SIGMA_MULTILEVEL_ERROR
+    return None
+
+
+def run(config, device="cuda", seed=0, sampling_scope=None):
+    """Run the configuration (a dict from ``read_parameter_file``) on
+    ``device`` (a combination the reference refuses raises ValueError
+    after its error line); prints the reference driver's report and
+    returns
+    {"method", "action", "qoi", "numerical", "error", "analytical",
+    "sigma_dev", "timings", ...}.  ``sampling_scope``: a context manager
+    (a profiler, say) the method enters around the phase that records its
+    samples."""
+    n_chains, dtype, device = parallel_setup(config, device)
+    method, lattice = _method_and_lattice(config)
     action = build_action(config, lattice)
     qoi_factory, qoi_name = select_qoi(action)
     cond_factory = select_cond_factory(action)
     is_schwinger = isinstance(action, QuenchedSchwingerAction)
     cluster_cls = (QuenchedSchwingerClusterSampler if is_schwinger
                    else ClusterSampler)
-    if method != "singlelevel" and not is_schwinger:
-        _gff_cond_factory(action)
+    error = refusal(config)
+    if error is not None:
+        print(error)
+        raise ValueError(error)
 
     def sampler_factory_by(name):
         return make_sampler_factory(name, config, cond_factory=cond_factory,
@@ -222,7 +256,12 @@ def main(argv=None, device="cuda") -> int:
                     help="'cuda' (the default: the card) or 'cpu'")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    run(read_parameter_file(args.config), device=args.device, seed=args.seed)
+    config = read_parameter_file(args.config)
+    error = refusal(config)
+    if error is not None:
+        print(error)
+        return 1
+    run(config, device=args.device, seed=args.seed)
     return 0
 
 

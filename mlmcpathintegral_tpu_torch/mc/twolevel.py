@@ -132,15 +132,30 @@ def make_batched_screen(fine_action, coarse_action, cond, qoi_fine,
     accept_trace), traces [S, C], for the coarse samples xcs
     [S, C, ndof_c]; ``s_cc_pre`` [S, C], when given, is their coarse action
     (an exact sampler's draw computes it already).  Proposals go in slices
-    so that the [S, C, ndof] tensor stays within ``slice_budget_bytes``."""
+    so that the [S, C, ndof] tensor stays within ``slice_budget_bytes``.
+
+    The fill's one-pass hooks go first, as in the JAX package: a fill
+    with ``fill_with_logq_sf`` returns the filled proposals with their
+    conditioned and fine actions, one with ``fill_with_logq`` with their
+    conditioned action; otherwise fill, then evaluate both actions.  A
+    fill shadows a hook to None where it does not hold."""
+
+    fill_with_logq = getattr(cond, "fill_with_logq", None)
+    fill_with_logq_sf = getattr(cond, "fill_with_logq_sf", None)
 
     def screen_slice(generator, tl, s_cc0, qf0, xcs, s_cc_pre=None):
         S = xcs.shape[0]
         theta = fine_action.prolongate(
             xcs, tl.theta.expand(S, *tl.theta.shape))
-        theta = cond.fill_fine_points(generator, theta)
-        S_q = cond.evaluate(theta)                    # [S, C]
-        S_f = fine_action.evaluate(theta)
+        if fill_with_logq_sf is not None:
+            theta, S_q, S_f = fill_with_logq_sf(generator, theta)
+        elif fill_with_logq is not None:
+            theta, S_q = fill_with_logq(generator, theta)
+            S_f = fine_action.evaluate(theta)
+        else:
+            theta = cond.fill_fine_points(generator, theta)
+            S_q = cond.evaluate(theta)                # [S, C]
+            S_f = fine_action.evaluate(theta)
         S_cc = (coarse_action.evaluate(xcs) if s_cc_pre is None
                 else s_cc_pre)
         qf = qoi_fine(theta)

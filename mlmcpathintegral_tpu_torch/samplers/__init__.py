@@ -2,6 +2,9 @@ from mlmcpathintegral_tpu_torch.samplers.base import Sampler
 from mlmcpathintegral_tpu_torch.samplers.cluster import (
     ClusterSampler, ClusterState,
 )
+from mlmcpathintegral_tpu_torch.samplers.cluster2d import (
+    Cluster2DSampler, Cluster2DState,
+)
 from mlmcpathintegral_tpu_torch.samplers.exact import (
     ExactSampler, ExactState,
 )

@@ -4,8 +4,10 @@
 Reference parity: src/sampler/overrelaxedheatbathsampler.{hh,cc} —
 n_sweep_overrelax overrelaxation sweeps followed by n_sweep_heatbath
 heat-bath sweeps.  Actions with coloured whole-lattice sweeps (the
-quenched Schwinger action's 4 conflict-free link groups, the GFF's
-red/black) supply them; the 1-D QM actions (harmonic, quartic, rotor) are
+quenched Schwinger action's 4 conflict-free link groups, the GFF's and
+the O(3) sigma model's red/black) supply them, and an action with a
+``combined_sweeps`` hook (the sigma model) runs a whole draw's sweeps
+through it; the 1-D QM actions (harmonic, quartic, rotor) are
 swept on the even/odd checkerboard through their ``heatbath_site`` /
 ``overrelax_site``.  With ``use_pallas`` (the quenched Schwinger action,
 the plain GFF and the rotor) a draw is one launch of the fused sweep
@@ -46,8 +48,7 @@ class OverrelaxedHeatBathSampler(Sampler):
             if not hasattr(action, "heatbath_site"):
                 raise NotImplementedError(
                     f"{type(action).__name__} has neither coloured sweeps "
-                    f"nor heatbath_site: its heat bath is not ported "
-                    f"(ROADMAP.md, open item 12)")
+                    f"nor heatbath_site: no heat bath for it")
             if action.lattice.M_lat % 2:
                 raise ValueError("checkerboard sweep needs even M_lat")
         super().__init__(action)
@@ -122,10 +123,15 @@ class OverrelaxedHeatBathSampler(Sampler):
                      "schwinger": schwinger.schwinger_sweep}[self._kind]
             x = sweep(x, kernel_seed(generator), **self._kernel_kw())
         elif self._action_sweeps:
-            for _ in range(self.n_sweep_overrelax):
-                x = self.action.overrelaxation_sweep(x)
-            for _ in range(self.n_sweep_heatbath):
-                x = self.action.heatbath_sweep(generator, x)
+            combined = getattr(self.action, "combined_sweeps", None)
+            if combined is not None:
+                x = combined(generator, x, self.n_sweep_overrelax,
+                             self.n_sweep_heatbath)
+            else:
+                for _ in range(self.n_sweep_overrelax):
+                    x = self.action.overrelaxation_sweep(x)
+                for _ in range(self.n_sweep_heatbath):
+                    x = self.action.heatbath_sweep(generator, x)
         else:
             for _ in range(self.n_sweep_overrelax):
                 x = self._half_sweep_overrelax(x, 0)

@@ -4,9 +4,10 @@ the CPU: the reader against the JAX package's on the repository's
 parameter files; MonteCarloSingleLevel's adaptive target against JAX's on
 the same statistics (numpy-made QoI series, carried over with
 ``convert``) and its draw schedule; the driver end to end with
-``--device cpu`` against the analytic oracles (4 sigma); every unported
-combination raising ``NotImplementedError`` that names its ROADMAP item;
-and the card as the driver's default device."""
+``--device cpu`` against the analytic oracles (4 sigma), every model,
+method and coarsening the JAX driver runs among them; the combinations
+the JAX driver refuses, refused with its error; and the card as the
+driver's default device."""
 
 import inspect
 import warnings
@@ -240,23 +241,85 @@ parallel:
     assert 0.0 < avg < 1.0 and err > 0.0
 
 
-@pytest.mark.parametrize("text, match", [
-    (GFF_SMOKE.replace("'singlelevel'", "'twolevel'"), "open item 11"),
-    (GFF_SMOKE.replace("'singlelevel'", "'multilevel'"), "open item 11"),
-    (GFF_SMOKE.replace("'singlelevel'", "'twolevel'").replace(
+#: the combinations the driver once refused, each run on the CPU now:
+#: the file and what its estimate is held to (the model's analytic value
+#: at 4 sigma; the sigma model has none).  The sigma run uses the heat
+#: bath (the JAX driver has no exact sigma sampler either, below) and the
+#: semi-coarsened MLMC two levels (a third cannot halve 4 x 4 in time
+#: twice, below)
+COMBINATIONS = {
+    "gff_twolevel": GFF_SMOKE.replace("'singlelevel'", "'twolevel'"),
+    "gff_multilevel": GFF_SMOKE.replace("'singlelevel'", "'multilevel'"),
+    "schwinger_twolevel": GFF_SMOKE.replace(
+        "'singlelevel'", "'twolevel'").replace(
         "'gff'", "'quenchedschwinger'").replace("'rotate'", "'temporal'"),
-     "open item 9"),
-    (GFF_SMOKE.replace("'gff'", "'nonlinearsigma'"), "open item 12"),
-    (GFF_SMOKE.replace("'exact'", "'hierarchical'"), "open item 11"),
-    (GFF_SMOKE.replace("'singlelevel'", "'multilevel'").replace(
+    "sigma": GFF_SMOKE.replace("'gff'", "'nonlinearsigma'").replace(
+        "'exact'", "'heatbath'"),
+    "hierarchical_sampler": GFF_SMOKE.replace("'exact'", "'hierarchical'"),
+    "schwinger_semicoarsened_mlmc": GFF_SMOKE.replace(
+        "'singlelevel'", "'multilevel'").replace(
+        "'gff'", "'quenchedschwinger'").replace(
+        "'rotate'", "'temporal'") + "multilevelmc:\n  n_level = 2\n",
+}
+
+
+@pytest.mark.parametrize("name", list(COMBINATIONS))
+def test_unported_combinations_raise(tmp_path, name):
+    """Every combination the driver once refused (the GFF's two-level and
+    multilevel methods and hierarchical sampler, the semi-coarsened
+    Schwinger fills, the sigma model) runs on the CPU, within 4 sigma of
+    the model's analytic value where it has one."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        res = qft.run(tconfig.read_parameter_file(
+            _cfg(tmp_path, COMBINATIONS[name])), device="cpu")
+    assert np.isfinite(res["numerical"]) and res["error"] > 0.0
+    if name == "sigma":
+        assert res["qoi"] == "chi_m" and res["analytical"] is None
+        assert 0.0 < res["numerical"] < 16.0    # |m|^2 / N <= N
+    else:
+        assert res["sigma_dev"] < 4.0, res
+
+
+#: combinations the JAX driver refuses, refused by the port with the same
+#: error type and text
+REFUSED = {
+    "sigma_multilevel": GFF_SMOKE.replace("'gff'", "'nonlinearsigma'").replace(
+        "'singlelevel'", "'multilevel'"),
+    "sigma_exact": GFF_SMOKE.replace("'gff'", "'nonlinearsigma'"),
+    "schwinger_semicoarsened_too_deep": GFF_SMOKE.replace(
+        "'singlelevel'", "'multilevel'").replace(
         "'gff'", "'quenchedschwinger'").replace("'rotate'", "'temporal'"),
-     "open item 9"),
-], ids=["gff_twolevel", "gff_multilevel", "schwinger_twolevel",
-        "sigma", "hierarchical_sampler", "schwinger_semicoarsened_mlmc"])
-def test_unported_combinations_raise(tmp_path, text, match):
-    with pytest.raises(NotImplementedError, match=match):
-        qft.run(tconfig.read_parameter_file(_cfg(tmp_path, text)),
-                device="cpu")
+    "gff_fill_both_coarsening": GFF_SMOKE.replace(
+        "'singlelevel'", "'twolevel'").replace("'rotate'", "'both'"),
+    # sampler = 'cluster' picks the 1-D Wolff sampler for any action but
+    # Schwinger's, in both drivers: it fails on the 2-D actions' hooks
+    "sigma_cluster": GFF_SMOKE.replace("'gff'", "'nonlinearsigma'").replace(
+        "'exact'", "'cluster'"),
+    "gff_cluster": GFF_SMOKE.replace("'exact'", "'cluster'"),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSED))
+def test_refused_combinations_match_jax(tmp_path, capsys, name):
+    from mlmcpathintegral_tpu.drivers import qft as jqft
+    path = str(_cfg(tmp_path, REFUSED[name]))
+    errors = []
+    for main, args in ((qft.main, [path, "--device", "cpu"]),
+                       (jqft.main, [path])):
+        try:
+            rc = main(args)
+            errors.append((rc, capsys.readouterr().out.splitlines()[-1]))
+        except Exception as e:
+            errors.append((type(e), str(e)))
+    assert errors[0] == errors[1], errors
+    if name == "sigma_multilevel":
+        assert errors[0] == (1, qft.SIGMA_MULTILEVEL_ERROR)
+        # run raises after the same line, with no run
+        with pytest.raises(ValueError, match="multilevel method not "
+                                             "supported"):
+            qft.run(tconfig.read_parameter_file(path), device="cpu")
+        assert capsys.readouterr().out.strip() == qft.SIGMA_MULTILEVEL_ERROR
 
 
 def test_driver_entry_points_default_to_the_card(tmp_path):

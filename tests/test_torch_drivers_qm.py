@@ -304,6 +304,24 @@ parallel:
   n_chains = 4
   dtype = 'float64'
 """)
-    with pytest.raises(NotImplementedError, match="open item 11"):
-        qft.run(tconfig.read_parameter_file(p), device="cpu")
+    # the GFF's hierarchical samplers run now; on the file's default
+    # both-direction coarsening the conditioned fill refuses the
+    # hierarchy, with the JAX package's error
+    from mlmcpathintegral_tpu.drivers import qft as jqft
+    errors = []
+    for main, args in ((qft.main, [str(p), "--device", "cpu"]),
+                       (jqft.main, [str(p)])):
+        with pytest.raises(ValueError) as e:
+            main(args)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] and "only coarse nearest" in errors[0]
+    # on the rotate hierarchy the run holds the oracle
+    p.write_text(p.read_text().replace(
+        "Mx_lat = 4", "Mx_lat = 4\n  coarsening = 'rotate'").replace(
+        "singlelevelmc:", "singlelevelmc:\n  n_burnin = 10\n"
+        "  n_samples = 1024").replace("n_chains = 4", "n_chains = 16"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        res = qft.run(tconfig.read_parameter_file(p), device="cpu")
+    assert np.isfinite(res["numerical"]) and res["sigma_dev"] < 4.0, res
 

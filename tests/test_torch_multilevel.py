@@ -201,7 +201,8 @@ def test_evaluate_on_cpu_matches_oracle():
 @pytest.mark.parametrize("kind", ["not_fused", "not_both", "not_heatbath"])
 def test_unported_configurations_raise(kind):
     """Without the fused kernels or with another coarse sampler the levels
-    build on the unfused path; coarsening other than BOTH still raises."""
+    build on the unfused path; with coarsening other than BOTH (the
+    semi-coarsened fill) the fine level does."""
     if kind == "not_fused":
         mc = _port_mc(use_pallas=False)
         assert sorted(mc._unfused) == [0, 1]
@@ -209,12 +210,16 @@ def test_unported_configurations_raise(kind):
     elif kind == "not_both":
         act = QuenchedSchwingerAction(
             Lattice2D(8, 8, CoarseningType.TEMPORAL), beta=4.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MonteCarloMultiLevel(
-                act, qoi_2d_susceptibility,
-                coarse_sampler_factory=OverrelaxedHeatBathSampler,
-                conditioned_fine_action_factory=(
-                    make_schwinger_conditioned_fine_action), n_level=2)
+        mc = MonteCarloMultiLevel(
+            act, qoi_2d_susceptibility,
+            coarse_sampler_factory=OverrelaxedHeatBathSampler,
+            conditioned_fine_action_factory=(
+                make_schwinger_conditioned_fine_action), n_level=2)
+        # the fine level unfused, the coarsest on the sweep-chain kernel
+        assert sorted(mc._unfused) == [0]
+        assert not mc._is_fused(0) and mc._is_fused(1)
+        assert type(mc.twolevel_steps[0].conditioned_fine_action).__name__ \
+            == "QuenchedSchwingerSemiConditionedFineAction"
     else:
         act = QuenchedSchwingerAction(Lattice2D(8, 8, CoarseningType.BOTH),
                                       beta=4.0)
