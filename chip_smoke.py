@@ -171,14 +171,48 @@ Phases, each printing one JSON line; any failure exits non-zero:
                call on CUDA, and the phase that records its samples under
                the profiler, through the drivers' ``sampling_scope``, for
                its host and device ms a draw (``QM_RUNS``,
-               ``REFERENCES``, ``ProfiledPhase``).
+               ``REFERENCES``, ``ProfiledPhase``); then run 13, the
+               last reference file no port run had driven
+               (``ref_qft_schwinger_heatbath.in``: single-level heat
+               bath, 8x8, beta = 4, 200 000 samples) as is and with
+               its heat bath on K3, both at 4 sigma from chit_exact
+               (the plain run's burn-in cut 10 000 -> 1 000 draws; cuts
+               of F1 10 000 -> 2 000, F2 1 000 -> 256 and F3 500 -> 256
+               draws keep the script within its limit);
+ 17. chain0  - every kernel's global chain offset at its path's launch
+               (K3 and K4 at the main path's, K6 at path C's, 16 steps,
+               K7 at path A's, K8 at B2's, K9 at E's, rng_fill at the
+               kernel table's grid and P2's step-less grid): the launches
+               of the two halves, the second with chain0 = C/2, equal the
+               whole launch bit for bit, and the plain version with
+               chain0 = C/2 passes the kernel's own phase's gates on the
+               second half (K3 and K4: on its first 256 chains); every
+               sha256 phases 3, 4, 6 and 10 printed
+               equals its recorded value (``BASELINE_SHA256``);
+ 18. mlmc_two_ranks - phase 5's run on two gloo ranks of the card (512
+               chains each, ``mesh=``, ``two_rank_main_path``): its chi,
+               error, tau_int(Y_0), t_sub and per-level samples must equal
+               phase 5's exactly; each rank's kernel launches, its
+               ``evaluate`` wall beside phase 5's, and the ms of one
+               gather of a level's statistics and of one scalar
+               all-reduce (the collectives of an adaptive decision);
+ 19. checkpoint - the main path's coarsest heat-bath chain (K3, 1024
+               chains): 64 draws, saved, loaded into a fresh template, 64
+               more equal 128 uninterrupted draws bit for bit; a saved
+               and restored fine-level carry's next K4 chunk equals the
+               uninterrupted one;
+ 20. spatial - the halo-exchange sweeps of ``parallel/spatial.py`` at one
+               rank (GFF 256x256 and Schwinger 64x64, 64 chains each)
+               equal their dense sweeps bit for bit, each timed beside
+               the dense one.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; each kernel of a path must have launched in it.  The
 kernels line gives, per kernel, its launches on its path (K3 and K4 on
 phase 5's, K7 on path A, K8 on path B2, K5 on path D, K6 on path C, K9
 on path E; the two probe kernels, P1 and rng_fill's step-less mode P2,
-are on no path and launch 0 times there), the
+are on no path and launch 0 times there), ``chain0`` where phase 17
+checked the kernel's chain offset, the
 measured ms of a launch at
 its path's shape beside the plain version's and the bound (the least time
 the card could take for the launch's work, ``perf_probe.bound_ms``; the
@@ -516,17 +550,18 @@ QM_RUNS = (
     ("1_harmonic_hierarchical_hmc", "qm",
      "baselines/configs/ref_qm_harmonic_hmc.in",
      {("singlelevelmc", "sampler"): "hierarchical",
-      ("hmc", "use_pallas"): True}, ("hmc_trajectory",), {}),
+      ("hmc", "use_pallas"): True}, ("hmc_trajectory",),
+     {("singlelevelmc", "n_burnin"): 2000}),
     ("2_rotor_hierarchical_heatbath", "qm",
      "baselines/configs/ref_qm_rotor_cluster.in",
      {("singlelevelmc", "sampler"): "hierarchical",
       ("heatbath", "use_pallas"): True}, ("rotor_sweep_chain",),
-     {("singlelevelmc", "n_burnin"): 1000}),
+     {("singlelevelmc", "n_burnin"): 256}),
     ("3_harmonic_multilevel_sampler", "qm",
      "baselines/configs/ref_qm_harmonic_hmc.in",
      {("singlelevelmc", "sampler"): "multilevel",
       ("hmc", "use_pallas"): True}, ("hmc_trajectory",),
-     {("singlelevelmc", "n_burnin"): 500}),
+     {("singlelevelmc", "n_burnin"): 256}),
     ("4_quartic_twolevel", "qm",
      "baselines/configs/ref_qm_quartic_twolevel.in",
      {("hmc", "use_pallas"): True}, ("hmc_trajectory",), {}),
@@ -556,6 +591,16 @@ QM_RUNS = (
       ("general", "method"): "twolevel",
       ("twolevelmc", "sampler"): "heatbath",
       ("heatbath", "use_pallas"): True}, ("schwinger_sweep_chain",), {}),
+    # the last reference file no port run had driven: single-level heat
+    # bath, 8x8, beta = 4, 200 000 samples, as is (its burn-in cut: the
+    # plain heat bath takes ~19 ms a draw on the card's host), and with
+    # its heat bath on K3
+    ("13_schwinger_singlelevel_heatbath", "qft",
+     "baselines/configs/ref_qft_schwinger_heatbath.in", {}, (),
+     {("singlelevelmc", "n_burnin"): 1000}),
+    ("13_schwinger_singlelevel_heatbath_K3", "qft",
+     "baselines/configs/ref_qft_schwinger_heatbath.in",
+     {("heatbath", "use_pallas"): True}, ("schwinger_sweep_chain",), {}),
 )
 #: runs held to a reference run's estimate and error (combined sigma) in
 #: place of the analytic value: the double well has none (the C++ run's
@@ -889,6 +934,142 @@ def sigma_cluster_check(dev, root, run, row, n_burnin=30, n_keep=64):
     return True
 
 
+#: the sha256 of the launches phases 3, 4, 6 and 10 print, as this script
+#: printed them on one H100 before chain offsets were added: every
+#: kernel's bits at chain0 = 0 must not have moved
+BASELINE_SHA256 = {
+    "sweep.main_launch": "aa94db7ffd1fbefa",
+    "sweep.run_12": "3dbf5e5c6bcffbd0",
+    "twolevel.main_launch": "c0da854de3c0bdb9",
+    "rotor_sweep.single_sweep": "94c6d21abd7a4707",
+    "rotor_sweep.main_launch": "fd357dc6b9daf8b6",
+    "rotor_sweep.path_F2": "ed8822101804fa93",
+    "hmc.path_D:harmonic": "c7fa046d5403d1a7",
+    "hmc.path_D:quartic": "97ffede54a7adedf",
+    "hmc.path_D:rotor": "42323e612c5ee715",
+    "hmc.path_C_coarse:quartic": "55de5b4fd8351106",
+    "hmc.path_F_coarsest:harmonic": "cea157ed14cb7971",
+}
+#: phase 5's chi in that same run, reported beside this run's (the statistics
+#: now sum each chain's samples as a contiguous row, which may move the
+#: last bits of an estimate; not gated)
+BASELINE_MAIN_CHI = 0.4796905517578125
+
+
+def chain_axis(t, n):
+    """The one axis of t whose size is the launch's chain count n."""
+    axes = [d for d, s in enumerate(t.shape) if s == n]
+    if len(axes) != 1:
+        raise ValueError(f"no unique chain axis of size {n} in {t.shape}")
+    return axes[0]
+
+
+def chain0_halves(run, C):
+    """A kernel launch over all C chains against two launches of its halves,
+    the second with chain0 = C/2: ``run(lo, hi, chain0)`` launches the
+    kernel on chains [lo, hi) of its inputs.  Returns (every output equal
+    bit for bit, the whole launch's outputs, the second half's)."""
+    def outs(lo, hi, c0):
+        o = run(lo, hi, c0)
+        return (o,) if isinstance(o, torch.Tensor) else tuple(o)
+
+    whole, lo, hi = outs(0, C, 0), outs(0, C // 2, 0), \
+        outs(C // 2, C, C // 2)
+    torch.cuda.synchronize()
+    equal = True
+    for w, a, b in zip(whole, lo, hi):
+        if w is None:
+            continue
+        equal &= torch.equal(w, torch.cat([a, b], dim=chain_axis(w, C)))
+    return equal, whole, hi
+
+
+def two_rank_rank(rank, world, store, out_dir, n_chains, seed):
+    """One rank of the main path on two gloo ranks of the one card: the
+    phase-5 run (``perf_probe.headline_mlmc``, ``n_chains`` chains split
+    over the ranks, ``mesh=``); writes its numbers, launches and the cost of
+    the collectives behind one adaptive decision to out_dir/rank<r>.json."""
+    import torch.distributed as dist
+
+    from mlmcpathintegral_tpu_torch import ops
+    from mlmcpathintegral_tpu_torch.parallel import (
+        gather_chains, global_chain_mesh, initialize_multihost,
+    )
+    from mlmcpathintegral_tpu_torch.parallel.chains import all_reduce_scalar
+    from mlmcpathintegral_tpu_torch.perf_probe import headline_mlmc
+    dev = torch.device("cuda", 0)
+    # NCCL takes one rank a card: two ranks on the one card run on gloo
+    initialize_multihost(f"file://{store}", world, rank, device=dev,
+                         backend="gloo")
+    try:
+        mesh = global_chain_mesh()
+        mc = headline_mlmc()
+        ops.reset_counters()
+        stats = mc.evaluate(torch.Generator().manual_seed(seed),
+                            n_chains=n_chains, dtype=torch.float32,
+                            device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        L = mc.n_level
+        res = {"rank": rank, "chit": mc.numerical_result(),
+               "err": mc.statistical_error(),
+               "tau_int_Y0": mc.stats_qoi[0].tau_int(stats[0]),
+               "t_sub": list(mc._t_sub),
+               "level_samples": [mc.stats_qoi[ell].samples(stats[ell])
+                                 for ell in range(L)],
+               "elapsed_s": mc.elapsed_s, "timings_s": mc.timings,
+               "cost_per_sample_us": mc.cost_per_sample,
+               "launches": {c.name: c.launches for c in ops.counters()},
+               "plain_calls_on_cuda": {c.name: c.plain_cuda_calls
+                                       for c in ops.counters()}}
+        # an adaptive decision reads each level's gathered Y statistics
+        # (one gather of the rank's [C/2] and [C/2, k_max] accumulators)
+        # and agrees on a time (one scalar all-reduce)
+        st = mc.final_carries[0][0][2]
+        reps = 20
+        dist.barrier()
+        t0 = time.monotonic()
+        for _ in range(reps):
+            gathered = gather_chains(mesh, st)
+        torch.cuda.synchronize()
+        res["gather_ms"] = (time.monotonic() - t0) * 1e3 / reps
+        res["gathered_bytes"] = sum(x.numel() * x.element_size()
+                                    for x in gathered if x.dim())
+        dist.barrier()
+        t0 = time.monotonic()
+        for _ in range(reps):
+            all_reduce_scalar(mesh, 1.0, "max", operand_on=dev)
+        res["all_reduce_ms"] = (time.monotonic() - t0) * 1e3 / reps
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_main_path(root, n_chains, seed, timeout_s=600.0):
+    """The main path on two gloo ranks of the card (``two_rank_rank``),
+    spawned and joined; returns (each rank's numbers, wall seconds)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        t0 = time.monotonic()
+        ctx = mp.start_processes(
+            two_rank_rank, args=(2, f"{tmp}/store", tmp, n_chains, seed),
+            nprocs=2, join=False, start_method="spawn")
+        deadline = t0 + timeout_s
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                fail(f"the two-rank main path did not finish within "
+                     f"{timeout_s} s")
+        wall = time.monotonic() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    return ranks, wall
+
+
 def main() -> int:
     start = time.monotonic()
     if not torch.cuda.is_available():
@@ -1163,6 +1344,11 @@ def main() -> int:
         fail("main path did not launch the sweep and two-level kernels")
     if any(plain_cuda.values()):
         fail("main path ran a plain version on CUDA")
+    phase5 = {"chit": num, "err": err, "tau_int_Y0": tau0,
+              "t_sub": list(mc._t_sub),
+              "level_samples": [mc.stats_qoi[ell].samples(stats[ell])
+                                for ell in range(mc.n_level)],
+              "elapsed_s": mc.elapsed_s}
 
     # ---- 6. K8: rotor sweep chain ----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1816,6 +2002,266 @@ def main() -> int:
         fail("a qm_driver run missed its oracle, launched no kernel of its "
              "path or ran a plain version on CUDA")
 
+    # ---- 17. chain0: every kernel's global chain offset ------------------
+    # at its path's launch: the two halves (the second with chain0 = C/2)
+    # equal the whole launch bit for bit, and the plain version with
+    # chain0 = C/2 agrees with the kernel's second half under the gates of
+    # the kernel's own phase.  K5 (HMC trajectory) and P1 (neighbour sum)
+    # draw no random words (K5's momenta and accept uniforms come from its
+    # caller), so they have no chain offset
+    from mlmcpathintegral_tpu_torch.parallel import chain_mesh
+    gen = torch.Generator(device=dev).manual_seed(17)
+    r17 = {}
+
+    def half(t, C):
+        return t.narrow(chain_axis(t, C), C // 2, C - C // 2)
+
+    # K3: the main path's coarsest launch
+    th3 = links(1024, 32)
+    kw3 = dict(beta=1.0, Mt=4, Mx=4, n_steps=2048, with_energy=True)
+    # the plain version on the first 256 chains of the second half
+    # (chain0 = 512): chains are independent, so the slice stands for the
+    # half at a quarter of the plain version's time
+    eq, _, k = chain0_halves(lambda lo, hi, c0: schwinger.
+                             schwinger_sweep_chain(th3[lo:hi], (5, 6),
+                                                   chain0=c0, **kw3), 1024)
+    k = [t[:, :256] if t.shape[0] == 2048 else t[:256] for t in k]
+    p = schwinger.schwinger_sweep_chain_plain(th3[512:768], (5, 6),
+                                              chain0=512, **kw3)
+    rep, ok = departures(
+        (rel_diff(k[1], p[1]) <= TOL) & (rel_diff(k[2], p[2]) <= TOL),
+        torch.maximum((k[1] - p[1]).abs(), (k[2] - p[2]).abs()).double())
+    r17[ops.SWEEP.name] = dict(halves_equal=eq, plain_chain0=rep,
+                               ok=eq and ok, launch="main path's 4x4, 1024 "
+                               "chains, n_steps=2048")
+    # K4: the main path's fine launch
+    args4, beta_c4 = carry(4.0)
+    kw4 = dict(beta=4.0, beta_c=beta_c4, Mt=8, Mx=8, n_steps=256, t_sub=8)
+    eq, _, k = chain0_halves(lambda lo, hi, c0: tl.schwinger_twolevel_chain(
+        *(a[lo:hi] for a in args4), (1, 2), chain0=c0, **kw4), 1024)
+    k = [t[:256] if i < 4 else t[:, :256] for i, t in enumerate(k)]
+    p = tl.schwinger_twolevel_chain_plain(*(a[512:768] for a in args4),
+                                          (1, 2), chain0=512, **kw4)
+    dqc = rel_diff(k[5], p[5]).reshape(256, 8, -1).amax(dim=1)
+    dec = rel_diff(k[6], p[6]).reshape(256, 8, -1).amax(dim=1)
+    rep, ok = departures((rel_diff(k[4], p[4]) <= TOL) & (k[7] == p[7])
+                         & (dqc <= TOL) & (dec <= TOL),
+                         (k[4] - p[4]).abs().double())
+    r17[tl.TWOLEVEL.name] = dict(halves_equal=eq, plain_chain0=rep,
+                                 ok=eq and ok, launch="main path's 8x8, 1024 "
+                                 "chains, n_steps=256, t_sub=8")
+    # K6: path C's launch (16 of its 64 steps, with the burn-in traces)
+    qkw = dict(QM, a_lat=act.a_lat, nt=100, n_steps=16, t_sub=2,
+               with_traces=True)
+
+    def run6(lo, hi, c0):
+        fine, xc6, sc6, dt6 = args6
+        return qtl.qm_twolevel_chain(
+            fine[:, lo:hi].contiguous(), xc6[lo:hi],
+            sc6[:, lo:hi].contiguous(), dt6, (7, 8), chain0=c0, **qkw)
+
+    eq, _, k = chain0_halves(run6, C6)
+    fine, xc6, sc6, dt6 = args6
+    p = qtl.qm_twolevel_chain_plain(
+        fine[:, C6 // 2:].contiguous(), xc6[C6 // 2:],
+        sc6[:, C6 // 2:].contiguous(), dt6, (7, 8), chain0=C6 // 2, **qkw)
+    agree = ((rel_diff(k[3], p[3]) <= TOL) & (rel_diff(k[4], p[4]) <= TOL)
+             & (k[7] == p[7]))
+    for i in (5, 6):
+        agree &= rel_diff(k[i], p[i]).reshape(16, 2, -1).amax(dim=1) <= TOL
+    rep, ok = departures(agree, (k[3] - p[3]).abs().double())
+    r17[qtl.QM_TWOLEVEL.name] = dict(
+        halves_equal=eq, plain_chain0=rep, ok=eq and ok,
+        launch=f"path C's {C6} chains, Mc={Mc}, nt=100, n_steps=16, "
+               f"t_sub=2 with traces")
+    # K7: path A's launch; K8: path B2's
+    for counter, C, M, kern, plain_fn, kw in (
+            (rotor.CLUSTER, A_C, A_M, rotor.rotor_cluster_chain,
+             rotor.rotor_cluster_chain_plain,
+             dict(kappa2=kappa2_A, M=A_M, n_steps=64, n_updates=5)),
+            (rotor.SWEEP, B_C, B_M, rotor.rotor_sweep_chain,
+             rotor.rotor_sweep_chain_plain,
+             dict(kappa=kappa, M=B_M, n_steps=B_STEPS))):
+        x = (torch.rand(C, M, generator=gen, device=dev) * 2 - 1) * math.pi
+        eq, _, k = chain0_halves(
+            lambda lo, hi, c0: kern(x[lo:hi], (3, 4), chain0=c0, **kw), C)
+        p = plain_fn(x[C // 2:], (3, 4), chain0=C // 2, **kw)
+        rep, ok = departures(rel_diff(k[1], p[1]) <= TOL,
+                             (k[1] - p[1]).abs().double())
+        rep["field_share_within_1e-4"] = angle_share(k[0], p[0], TOL)
+        r17[counter.name] = dict(
+            halves_equal=eq, plain_chain0=rep,
+            ok=eq and ok and rep["field_share_within_1e-4"] >= SHARE_MIN,
+            launch=f"{C} chains, " + ", ".join(f"{a}={b}" for a, b in
+                                                kw.items()))
+    # K9: path E's launch
+    phi9 = torch.randn(PATH_E_CHAINS, E_M * E_M, generator=gen, device=dev)
+    kw9 = dict(kappa=kappa_E, Mt=E_M, Mx=E_M, n_overrelax=1, n_heatbath=1)
+    eq, _, k = chain0_halves(lambda lo, hi, c0: gff.gff_sweep(
+        phi9[lo:hi], (3, 4), chain0=c0, **kw9), PATH_E_CHAINS)
+    p = gff.gff_sweep_plain(phi9[PATH_E_CHAINS // 2:], (3, 4),
+                            chain0=PATH_E_CHAINS // 2, **kw9)
+    share = field_share(k[0], p, TOL)
+    r17[gff.SWEEP.name] = dict(
+        halves_equal=eq, ok=eq and share >= SHARE_MIN,
+        plain_chain0={"share_within_1e-4": share,
+                      "max_abs_err": float((k[0] - p).abs().max())},
+        launch=f"path E's {PATH_E_CHAINS} chains, {E_M}x{E_M}, 1 + 1 "
+               f"sweeps")
+    # rng_fill: the kernel table's grid (stepped, K1) and the step-less
+    # streams of P2's 33.5M-word grid
+    for name, g in (("rng_fill", grids[0]),
+                    ("rng_fill (step-less)", grids[2])):
+        Cg = g["n_chains"]
+        gk = {k_: v for k_, v in g.items() if k_ != "n_chains"}
+        eq, _, k = chain0_halves(lambda lo, hi, c0: rng.rng_fill(
+            (123456, -98765), n_chains=hi - lo, device=dev, chain0=c0,
+            **gk), Cg)
+        p = rng.rng_fill_plain((123456, -98765), n_chains=Cg // 2,
+                               device=dev, chain0=Cg // 2, **gk)
+        torch.cuda.synchronize()
+        chk = {"bits_identical": bool(torch.equal(k[0], p[0])),
+               "uniforms_identical": bool(torch.equal(k[1], p[1])),
+               "normal_max_abs_err": float((k[2] - p[2]).abs().max())}
+        r17[name] = dict(halves_equal=eq, plain_chain0=chk, launch=g,
+                         ok=eq and chk["bits_identical"]
+                         and chk["uniforms_identical"]
+                         and chk["normal_max_abs_err"] <= 1e-6)
+        del k, p
+    torch.cuda.empty_cache()
+    # every output's bits at chain0 = 0 are the recorded ones
+    now = {"sweep.main_launch": sweep_res["main_launch"]["sha256"],
+           "sweep.run_12": sweep_res["run_12"]["sha256"],
+           "twolevel.main_launch": tl_res["main_launch"]["sha256"],
+           "rotor_sweep.single_sweep": r8["single_sweep_sha256"],
+           "rotor_sweep.main_launch": r8["main_launch_sha256"],
+           "rotor_sweep.path_F2": r8["path_F2"]["sha256"],
+           **{f"hmc.{k_}": v["sha256"] for k_, v in r10.items()}}
+    sha_moved = {k_: [v, now.get(k_)] for k_, v in BASELINE_SHA256.items()
+                 if now.get(k_) != v}
+    emit({"phase": "chain0", **r17, "sha256_vs_baseline": {
+        "compared": len(BASELINE_SHA256), "moved": sha_moved},
+        "no_chain0": {hmc.HMC.name: "draws no random words: x, p and u "
+                      "come from its caller", gff.NBSUM.name: "draws no "
+                      "random words"}})
+    if not all(r["ok"] for r in r17.values()):
+        fail("a kernel's chain offset disagrees: "
+             + ", ".join(n for n, r in r17.items() if not r["ok"]))
+    if sha_moved:
+        fail(f"outputs at chain0 = 0 moved from the recorded values: {sha_moved}")
+
+    # ---- 18. the main path on two ranks of the card ---------------------
+    # phase 5's run split over two gloo ranks (512 chains each, mesh=): its
+    # estimate, error, tau_int(Y_0), t_sub and per-level samples must be
+    # phase 5's exactly
+    two, wall_two = two_rank_main_path(root, 1024, 2)
+    keys = ("chit", "err", "tau_int_Y0", "t_sub", "level_samples")
+    same = {k_: all(r[k_] == phase5[k_] for r in two) for k_ in keys}
+    emit({"phase": "mlmc_two_ranks", "backend": "gloo", "ranks": two,
+          "phase5": phase5, "equal_to_phase5": same,
+          "wall_s_two_ranks": wall_two,
+          "elapsed_s": {"phase5": phase5["elapsed_s"],
+                        "two_ranks": [r["elapsed_s"] for r in two]},
+          "baseline_chit": BASELINE_MAIN_CHI})
+    if not all(same.values()):
+        fail(f"the two-rank main path differs from phase 5: {same}")
+    if any(r["launches"][ops.SWEEP.name] == 0
+           or r["launches"][ops.TWOLEVEL.name] == 0
+           or any(r["plain_calls_on_cuda"].values()) for r in two):
+        fail("a rank of the two-rank main path missed a kernel or ran a "
+             "plain version on CUDA")
+
+    # ---- 19. checkpoint and resume on the card --------------------------
+    import tempfile
+
+    from mlmcpathintegral_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+    mc19 = headline_mlmc()
+    hb19 = OverrelaxedHeatBathSampler(mc19.actions[-1], use_pallas=True)
+    s0 = hb19.init(torch.Generator(device=dev).manual_seed(21), 1024,
+                   torch.float32, dev)
+
+    def draws(state, g, n):
+        for _ in range(n):
+            state, _ = hb19.draw(g, state)
+        return state
+
+    ops.reset_counters()
+    r19 = {}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        g = torch.Generator().manual_seed(22)
+        save_checkpoint(f"{tmp}/k3.npz", {"state": draws(s0, g, 64),
+                                           "gen": g}, metadata={"draws": 64})
+        back = load_checkpoint(f"{tmp}/k3.npz", {
+            "state": hb19.init(torch.Generator(device=dev).manual_seed(9),
+                               1024, torch.float32, dev),
+            "gen": torch.Generator()})
+        resumed = draws(back["state"], back["gen"], 64)
+        whole = draws(s0, torch.Generator().manual_seed(22), 128)
+        r19["k3_64_plus_64_equals_128"] = bool(torch.equal(resumed.x,
+                                                           whole.x))
+        # a two-level carry of the main path's fine level (K4)
+        carries, _ = mc19.init_carries(
+            torch.Generator(device=dev).manual_seed(23), 1024,
+            torch.float32, dev)
+        chunk = mc19._chunk(0)
+        n19 = mc19._level_chunk(0)
+        c1, _ = chunk(torch.tensor([1, 2], dtype=torch.int32), carries[0],
+                      n19)
+        save_checkpoint(f"{tmp}/k4.npz", c1)
+        tmpl, _ = mc19.init_carries(
+            torch.Generator(device=dev).manual_seed(24), 1024,
+            torch.float32, dev)
+        c1b = load_checkpoint(f"{tmp}/k4.npz", tmpl[0])
+        seed = torch.tensor([3, 4], dtype=torch.int32)
+        a, ya = chunk(seed, c1, n19)
+        b, yb = chunk(seed, c1b, n19)
+        from mlmcpathintegral_tpu_torch.utils.tree import tree_flatten
+        r19["k4_resumed_chunk_equal"] = bool(torch.equal(ya, yb) and all(
+            torch.equal(u, v) for u, v in zip(tree_flatten(a)[0],
+                                              tree_flatten(b)[0])))
+    torch.cuda.synchronize()
+    r19["launches"] = {c.name: c.launches for c in ops.counters()
+                       if c.launches}
+    emit({"phase": "checkpoint", **r19})
+    if not (r19["k3_64_plus_64_equals_128"]
+            and r19["k4_resumed_chunk_equal"]):
+        fail("a resumed run does not continue bit for bit")
+
+    # ---- 20. the spatial sweeps at one rank on the card -----------------
+    from mlmcpathintegral_tpu_torch.models.qft.gff import GFFAction
+    from mlmcpathintegral_tpu_torch.parallel import spatial
+    space = chain_mesh(axis_name="space")
+    gact = GFFAction(Lattice2D(256, 256, CoarseningType.BOTH), mass=1.0)
+    phi = torch.randn(64, 256 * 256, generator=gen, device=dev)
+    xi = torch.randn(64, 256 * 256, generator=gen, device=dev)
+    gsw = spatial.make_sharded_gff_sweep(gact, space)
+    r20 = {"gff_256x256_64_chains": {
+        "equal_to_dense": bool(torch.equal(
+            gsw(phi, xi), spatial.gff_heatbath_sweep_noise(gact, phi, xi))),
+        "ms": cuda_ms(lambda: gsw(phi, xi), 5),
+        "dense_ms": cuda_ms(lambda: spatial.gff_heatbath_sweep_noise(
+            gact, phi, xi), 5)}}
+    sact = QuenchedSchwingerAction(Lattice2D(64, 64, CoarseningType.BOTH),
+                                   beta=4.0)
+    theta = links(64, sact.ndof)
+    noise = spatial.make_schwinger_sweep_noise(gen, sact, 64,
+                                               dtype=torch.float32)
+    ssw = spatial.make_sharded_schwinger_sweep(sact, space)
+    r20["schwinger_64x64_64_chains"] = {
+        "equal_to_dense": bool(torch.equal(
+            ssw(theta, noise),
+            spatial.schwinger_heatbath_sweep_noise(sact, theta, noise))),
+        "ms": cuda_ms(lambda: ssw(theta, noise), 5),
+        "dense_ms": cuda_ms(lambda: spatial.schwinger_heatbath_sweep_noise(
+            sact, theta, noise), 5)}
+    emit({"phase": "spatial", **r20})
+    if not all(r["equal_to_dense"] for r in r20.values()):
+        fail("a sharded sweep at one rank differs from its dense sweep")
+    del phi, xi, noise, theta
+    torch.cuda.empty_cache()
+
     # ---- the kernel table and the result line ---------------------------
     # every kernel with its launches on its own path: K3 and K4 on the
     # heat-bath main path (phase 5), K7 on path A (phase 9), K8 on path B2
@@ -1863,6 +2309,13 @@ def main() -> int:
                         if r["name"] not in (hmc.HMC.name, gff.NBSUM.name)],
         "checked_through": ops.RNG_FILL.name,
         "rng_fill_launches": launches[ops.RNG_FILL.name], **rng_row}]
+    # the kernels whose global chain offset phase 17 checked
+    for r in rows:
+        r["chain0"] = bool(r17.get(r["name"], {}).get("ok", False))
+    for r in rows:
+        if r["name"] in (hmc.HMC.name, gff.NBSUM.name):
+            r["chain0_note"] = "draws no random words: nothing to offset"
+    device_functions[0]["chain0"] = r17[ops.RNG_FILL.name]["ok"]
     emit({"phase": "done", "seconds": time.monotonic() - start})
     print(card_line, flush=True)
     emit({"kernels": rows, "device_functions": device_functions})

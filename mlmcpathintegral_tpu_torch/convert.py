@@ -16,6 +16,12 @@ array-like leaves (numpy or JAX arrays) and returns the port's types;
 classes given in ``types`` (by class name), e.g. the JAX package's own.
 It is the port's analogue of carrying weights across, and what lets a
 test start both packages from the same state.  It imports no JAX.
+
+State also crosses on disk: ``utils/checkpoint.py`` writes and reads the
+JAX package's checkpoint format (``leaf_i`` arrays and a ``__meta__``
+record, leaves in the JAX leaf order), so ``load_checkpoint`` restores a
+file the JAX package's ``save_checkpoint`` wrote of a ``StatsState`` or
+of a sampler state with the same fields into the port's template.
 """
 
 from __future__ import annotations

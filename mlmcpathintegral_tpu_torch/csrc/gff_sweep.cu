@@ -71,6 +71,7 @@ struct GffArgs {
   int C, Mx, Mt, n_overrelax, n_heatbath;
   float kappa, sigma;
   uint32_t seed1, seed2;
+  uint32_t chain0;  // global index of the launch's first chain
 };
 
 // the kernel's branches (ops/gff.py sweep_launch)
@@ -172,7 +173,7 @@ __global__ void gff_sweep_kernel(const float* __restrict__ phi_in,
     }
   }
   if (a.n_heatbath > 0) {
-    const uint32_t base_c = chain_base(a.seed2, (uint32_t)chain);
+    const uint32_t base_c = chain_base(a.seed2, a.chain0 + (uint32_t)chain);
     for (int h = 0; h < a.n_heatbath; ++h) {
       for (int colour = 0; colour < 2; ++colour) {
         const uint32_t ctr = (uint32_t)(4 * h + 2 * colour + 1);
@@ -252,14 +253,16 @@ static const void* sweep_kernel_for(int branch) {
 // chain a warp, cpb warps a block, lanes = 32; 1 (block): a chain on a
 // block of `lanes` threads (cpb = 1); 2 (global): as 1 with the fields
 // updated in place in phi_out (smem = 0).  smem: dynamic shared bytes.
+// chain0: the global index of the launch's chain 0, which the chain hash
+// takes.
 extern "C" int mlmc_gff_sweep(const float* phi_in, float* phi_out, int C,
                               int Mx, int Mt, int n_overrelax,
                               int n_heatbath, float kappa, float sigma,
-                              uint32_t seed1, uint32_t seed2, int lanes,
-                              int cpb, int branch, size_t smem,
-                              void* stream) {
+                              uint32_t seed1, uint32_t seed2,
+                              uint32_t chain0, int lanes, int cpb,
+                              int branch, size_t smem, void* stream) {
   mlmc::GffArgs a{C,     Mx,    Mt,    n_overrelax, n_heatbath,
-                  kappa, sigma, seed1, seed2};
+                  kappa, sigma, seed1, seed2,       chain0};
   const void* fn = mlmc::sweep_kernel_for(branch);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {

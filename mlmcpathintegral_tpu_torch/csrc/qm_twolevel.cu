@@ -52,6 +52,7 @@ struct QmTwolevelArgs {
   float rho, ccw, kcurv, k3;
   float inv_M, inv_Mc;
   uint32_t seed1, seed2;
+  uint32_t chain0;  // global index of the launch's first chain
   int lanes;  // lanes per chain: a power of two <= 32
 };
 
@@ -117,7 +118,7 @@ __global__ void __launch_bounds__(QM_TWOLEVEL_THREADS_MAX)
   const int lt = threadIdx.x & (G - 1);
   const int chain = blockIdx.x * (blockDim.x / G) + lc;
   const bool valid = chain < C;
-  const uint32_t ch = (uint32_t)chain;
+  const uint32_t ch = a.chain0 + (uint32_t)chain;
   const int L = (Mc + S - 1) / S;  // lanes holding sites
   Ring<S> r;
   r.n = max(0, min(S, Mc - lt * S));
@@ -286,7 +287,8 @@ static const void* kernel_for(int sites) {
 // [1, C] (written as zeros).  Outputs may not alias inputs.  The constants
 // are folded on the host (ops/qm_twolevel.py).  lanes per chain (a power
 // of two <= 32), threads per block (a multiple of 32, at most 128), sites
-// a lane (a power of two <= 32, with lanes * sites >= Mc).
+// a lane (a power of two <= 32, with lanes * sites >= Mc).  chain0: the
+// global index of the launch's chain 0, which the chain words hash.
 extern "C" int mlmc_qm_twolevel(
     const float* fine_in, const float* xc_in, const float* sc_in,
     const float* dt, float* fine_out, float* xc_out, float* sc_out,
@@ -295,7 +297,7 @@ extern "C" int mlmc_qm_twolevel(
     float al_c, float x0, float a2_c, float mu2, float m0, float hl,
     float kac, float kaf, float a2f, float rho, float ccw, float kcurv,
     float k3, float inv_M, float inv_Mc, uint32_t seed1, uint32_t seed2,
-    int lanes, int threads, int sites, void* stream) {
+    uint32_t chain0, int lanes, int threads, int sites, void* stream) {
   mlmc::QmTwolevelArgs a{C,
                          Mc,
                          nt,
@@ -314,6 +316,7 @@ extern "C" int mlmc_qm_twolevel(
                          inv_Mc,
                          seed1,
                          seed2,
+                         chain0,
                          lanes};
   const void* kernel = mlmc::kernel_for(sites);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;

@@ -33,16 +33,16 @@ namespace mlmc {
 __global__ void rng_fill_kernel(uint32_t* __restrict__ bits,
                                 float* __restrict__ uni,
                                 float* __restrict__ nrm, uint32_t seed1,
-                                uint32_t seed2, int n_sites, int n_chains,
-                                int step0, int n_steps, int n_ctr,
-                                int stepless) {
+                                uint32_t seed2, uint32_t chain0,
+                                int n_sites, int n_chains, int step0,
+                                int n_steps, int n_ctr, int stepless) {
   const int plane = n_chains * n_sites;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= plane) return;
   const int chain = i / n_sites;
   const int site = i - chain * n_sites;
   const uint32_t site_h = site_hash(seed1, (uint32_t)site);
-  const uint32_t base_c = chain_base(seed2, (uint32_t)chain);
+  const uint32_t base_c = chain_base(seed2, chain0 + (uint32_t)chain);
   const int n_pairs = n_ctr / 2;
   for (int st = blockIdx.y; st < n_steps; st += gridDim.y) {
     const uint32_t base_s =
@@ -74,15 +74,18 @@ __global__ void rng_fill_kernel(uint32_t* __restrict__ bits,
 
 }  // namespace mlmc
 
-// threads, blocks_x, blocks_y: the launch of ops/rng.py fill_launch
+// threads, blocks_x, blocks_y: the launch of ops/rng.py fill_launch;
+// chain0: the global index of the grid's chain 0, which the chain lane
+// hashes
 extern "C" int mlmc_rng_fill(uint32_t* bits, float* uni, float* nrm,
-                             uint32_t seed1, uint32_t seed2, int n_sites,
+                             uint32_t seed1, uint32_t seed2, uint32_t chain0,
+                             int n_sites,
                              int n_chains, int step0, int n_steps, int n_ctr,
                              int stepless, int threads, int blocks_x,
                              int blocks_y, void* stream) {
   mlmc::rng_fill_kernel<<<dim3(blocks_x, blocks_y), threads, 0,
                           (cudaStream_t)stream>>>(
-      bits, uni, nrm, seed1, seed2, n_sites, n_chains, step0, n_steps, n_ctr,
-      stepless);
+      bits, uni, nrm, seed1, seed2, chain0, n_sites, n_chains, step0, n_steps,
+      n_ctr, stepless);
   return (int)cudaGetLastError();
 }

@@ -53,6 +53,7 @@ struct RotorClusterArgs {
   int C, M, n_steps, n_updates;
   float kappa2;
   uint32_t seed1, seed2;
+  uint32_t chain0;  // global index of the launch's first chain
   int lanes;  // lanes per chain: a power of two <= 32
 };
 
@@ -68,7 +69,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS_MAX)
   const int lt = threadIdx.x & (G - 1);
   const int chain = blockIdx.x * (blockDim.x / G) + lc;
   const bool valid = chain < a.C;
-  const uint32_t ch = (uint32_t)chain;
+  const uint32_t ch = a.chain0 + (uint32_t)chain;
   // this chain's lanes among the warp's (for the ballot)
   const unsigned group =
       G == 32 ? FULL : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
@@ -185,13 +186,16 @@ static cudaError_t allow_smem(size_t smem) {
 // x_in/x_out: [C, M] f32 (may not alias); wsum: [n_steps, C] f32.  lanes
 // per chain (a power of two <= 32), threads per block (a multiple of 32,
 // at most 128), smem bytes of dynamic shared memory (2 M floats a chain).
+// chain0: the global index of the launch's chain 0, which the chain words
+// hash.
 extern "C" int mlmc_rotor_cluster(const float* x_in, float* x_out,
                                   float* wsum, int C, int M, int n_steps,
                                   int n_updates, float kappa2, uint32_t seed1,
-                                  uint32_t seed2, int lanes, int threads,
-                                  size_t smem, void* stream) {
-  mlmc::RotorClusterArgs a{C,     M,     n_steps, n_updates,
-                           kappa2, seed1, seed2,  lanes};
+                                  uint32_t seed2, uint32_t chain0, int lanes,
+                                  int threads, size_t smem, void* stream) {
+  mlmc::RotorClusterArgs a{C,      M,     n_steps, n_updates,
+                           kappa2, seed1, seed2,   chain0,
+                           lanes};
   cudaError_t e = mlmc::allow_smem(smem);
   if (e != cudaSuccess) return (int)e;
   const int cpb = threads / lanes;

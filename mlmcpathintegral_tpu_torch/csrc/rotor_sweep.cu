@@ -58,6 +58,7 @@ struct RotorSweepArgs {
   int C, M, n_steps, n_overrelax, n_heatbath, k_rej;
   float kappa;
   uint32_t seed1, seed2;
+  uint32_t chain0;  // global index of the launch's first chain
   int cpb, words;
 };
 
@@ -215,7 +216,7 @@ __global__ void __launch_bounds__(ROTOR_SWEEP_THREADS, 8)
 
   const ChainWords cw =
       chain_words(reinterpret_cast<uint32_t*>(mine), a.words, a.seed2,
-                  (uint32_t)chain, lt, 32);
+                  a.chain0 + (uint32_t)chain, lt, 32);
   const float* src = x_in + (size_t)chain * M;
   for (int s = lt; s < M; s += 32) x[s] = valid ? src[s] : 0.0f;
   __syncwarp();
@@ -281,14 +282,17 @@ __global__ void __launch_bounds__(ROTOR_SWEEP_THREADS, 8)
 // x_in/x_out: [C, M] f32 (may not alias, M even); wsum: [n_steps, C] f32
 // or null.  cpb chains (warps) per block, words of the chain-word table
 // and smem bytes of dynamic shared memory (ops/rotor.py sweep_launch).
+// chain0: the global index of the launch's chain 0, which the chain words
+// hash.
 extern "C" int mlmc_rotor_sweep(const float* x_in, float* x_out, float* wsum,
                                 int C, int M, int n_steps, int n_overrelax,
                                 int n_heatbath, int k_rej, float kappa,
-                                uint32_t seed1, uint32_t seed2, int cpb,
-                                int words, size_t smem, void* stream) {
+                                uint32_t seed1, uint32_t seed2,
+                                uint32_t chain0, int cpb, int words,
+                                size_t smem, void* stream) {
   mlmc::RotorSweepArgs a{C,     M,     n_steps, n_overrelax, n_heatbath,
-                         k_rej, kappa, seed1,   seed2,       cpb,
-                         words};
+                         k_rej, kappa, seed1,   seed2,       chain0,
+                         cpb,   words};
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         mlmc::rotor_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -48,6 +48,7 @@ struct SweepArgs {
   int C, Mx, Mt, n_steps, step_offset, n_overrelax, n_heatbath, k_rej;
   float beta;
   uint32_t seed1, seed2;
+  uint32_t chain0;  // global index of the launch's first chain
   int lanes, cpb;
 };
 
@@ -82,7 +83,7 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
 
   const ChainWords cw =
       chain_words(reinterpret_cast<uint32_t*>(mine), SWEEP_WORDS, a.seed2,
-                  (uint32_t)chain, lt, G);
+                  a.chain0 + (uint32_t)chain, lt, G);
   const float* src = theta_in + (size_t)chain * 2 * nsites;
   for (int s = lt; s < nsites; s += G) {
     T[s] = valid ? src[2 * s] : 0.0f;
@@ -151,7 +152,9 @@ extern "C" int mlmc_max_smem_optin(int device, int* out) {
 
 // theta_in/theta_out: [C, 2*Mx*Mt] f32 (may not alias); qsum/esum:
 // [n_steps, C] f32 or null; work: null, or [C, 2*Mx*Mt] f32 scratch for
-// the global-memory branch (then one chain per block).  lanes per chain (a
+// the global-memory branch (then one chain per block).  chain0: the global
+// index of chain 0 of this launch, which the chain words hash (0 for a
+// launch over all chains; a rank's first chain under a chain mesh).  lanes per chain (a
 // power of two: <= 32 the warp design, else the block's threads), cpb
 // chains per block, smem bytes of dynamic shared memory.
 extern "C" int mlmc_schwinger_sweep(const float* theta_in, float* theta_out,
@@ -160,10 +163,12 @@ extern "C" int mlmc_schwinger_sweep(const float* theta_in, float* theta_out,
                                     int Mt, int n_steps, int step_offset,
                                     int n_overrelax, int n_heatbath,
                                     int k_rej, float beta, uint32_t seed1,
-                                    uint32_t seed2, int lanes, int cpb,
-                                    size_t smem, void* stream) {
-  mlmc::SweepArgs a{C, Mx, Mt, n_steps, step_offset, n_overrelax,
-                    n_heatbath, k_rej, beta, seed1, seed2, lanes, cpb};
+                                    uint32_t seed2, uint32_t chain0,
+                                    int lanes, int cpb, size_t smem,
+                                    void* stream) {
+  mlmc::SweepArgs a{C,         Mx,   Mt,    n_steps, step_offset, n_overrelax,
+                    n_heatbath, k_rej, beta, seed1,  seed2,       chain0,
+                    lanes,     cpb};
   const int blocks = (C + cpb - 1) / cpb;
   cudaError_t e;
   if (lanes <= 32) {

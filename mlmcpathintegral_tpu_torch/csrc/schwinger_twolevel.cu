@@ -49,6 +49,7 @@ struct TwoLevelArgs {
       k_rej_fill, k_rej_bessel, exact, small_beta, n_alpha;
   float beta, beta_c, two_beta, two_L, sigma_beta, sigma_half;
   uint32_t seed1, seed2;
+  uint32_t chain0;  // global index of the launch's first chain
   int lanes, cpb;
 };
 
@@ -245,7 +246,7 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
   const int lt = threadIdx.x & (G - 1);
   const int chain = blockIdx.x * a.cpb + lc;
   const bool valid = chain < a.C;
-  const uint32_t ch = (uint32_t)chain;
+  const uint32_t ch = a.chain0 + (uint32_t)chain;
   const int slice = TWOLEVEL_WORDS + 20 * n;
   float* mine = smem + (size_t)lc * slice;
   float* F = mine + TWOLEVEL_WORDS;  // current fine components [8][n]
@@ -620,6 +621,8 @@ cudaError_t allow_twolevel_smem(size_t smem) {
 // distinct.  alphas: n_alpha rescaled series coefficients (exact branch).
 // lanes per chain (a power of two: <= 32 the warp design, else the block's
 // threads), cpb chains per block, smem bytes of dynamic shared memory.
+// chain0: the global index of the launch's chain 0, which the chain words
+// hash.
 extern "C" int mlmc_schwinger_twolevel(
     const float* fine_in, const float* coarse_in, const float* sf_in,
     const float* sq_in, float* fine_out, float* coarse_out, float* sf_out,
@@ -628,14 +631,14 @@ extern "C" int mlmc_schwinger_twolevel(
     int t_sub, int n_overrelax_c, int n_heatbath_c, int k_rej,
     int k_rej_fill, int k_rej_bessel, int exact, int small_beta, float beta,
     float beta_c, float two_L, float sigma_beta, float sigma_half,
-    uint32_t seed1, uint32_t seed2, int lanes, int cpb, size_t smem,
-    void* stream) {
+    uint32_t seed1, uint32_t seed2, uint32_t chain0, int lanes, int cpb,
+    size_t smem, void* stream) {
   mlmc::TwoLevelArgs a{C,          Mx / 2,       Mt / 2,       n_steps,
                        t_sub,      n_overrelax_c, n_heatbath_c, k_rej,
                        k_rej_fill, k_rej_bessel, exact,        small_beta,
                        n_alpha,    beta,         beta_c,       2.0f * beta,
                        two_L,      sigma_beta,   sigma_half,   seed1,
-                       seed2,      lanes,        cpb};
+                       seed2,      chain0,       lanes,        cpb};
   const int blocks = (C + cpb - 1) / cpb;
   cudaError_t e;
   if (lanes <= 32) {

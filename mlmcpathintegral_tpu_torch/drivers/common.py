@@ -224,13 +224,9 @@ def run_multilevel(config, action, qoi_factory, coarse_factory,
     stats = mc.evaluate(generator, n_chains, dtype, device, verbose=True,
                         sampling_scope=sampling_scope)
     numerical, stat_err = mc.numerical_result(), mc.statistical_error()
-    print(f" Q: Avg +/- Err = {numerical:.6f} +/- {stat_err:.6f}")
-    print(f" [timer MultilevelMC] : {mc.elapsed_s:.4f} s")
+    mc.show_statistics()
     if sec.get_bool("show_detailed_stats"):
-        print("=== Statistics of QoI ===")
-        for ell in range(mc.n_level):
-            print(f"level = {ell}")
-            print(mc.stats_qoi[ell].summary(stats[ell]))
+        mc.show_detailed_statistics()
     result = dict(timings=dict(mc.timings),
                   level_tau_int=[mc.stats_qoi[ell].tau_int(stats[ell])
                                  for ell in range(mc.n_level)],

@@ -28,6 +28,21 @@ have no such limit.  The paths are chosen again for the device of each
 run (``init_carries``).  A configuration without a ported conditioned
 fill raises when its factory is called.
 
+Chain-parallel runs (``evaluate(mesh=)``, parallel/chains.py): every rank
+builds every level's set-up state for all C chains from the same
+generator and keeps its block of C/W chains, as the JAX package builds and
+then shards; all ranks draw the same chunk seeds, and the fused kernels
+hash the global chain index (``chain0``, the rank's first chain), so a
+fused level's chains draw what they draw in a one-process run, bit for
+bit.  The statistics are gathered over the mesh before a getter reads
+them, so every decision — burn-in length, sample targets, t_sub, the
+adaptive N_ell — is made from the same numbers on every rank, the
+measured cost per sample from the slowest rank's time; the ranks stay in
+lockstep.  An unfused chunk's generator is seeded from its chunk seed and
+the rank, so its plain noise is the rank's own: that path equals the
+one-process run in distribution, not bit for bit.  The multilevel method
+is the one the reference cannot parallelise (driver_qm.cc:382-386).
+
 Adaptive sample allocation (montecarlomultilevel.cc:147-164):
   N_ell = ceil( 2/eps^2 * S * sqrt(V_ell / C_ell^eff) * tau_ell ),
   S = sum_ell sqrt(V_ell * C_ell^eff),  C_ell^eff = ceil(tau_ell) C_ell
@@ -102,6 +117,9 @@ class MonteCarloMultiLevel:
         #: the most shared memory one block may use on the run's device
         #: (None: no limit, the plain versions on the CPU)
         self._smem_limit = None
+        #: the run's chain mesh, this rank's first chain and its rank (set
+        #: for each run by _set_mesh)
+        self._mesh, self._chain0, self._rank = None, 0, 0
         self.qois = [qoi_factory(a) for a in self.actions]
         self.stats_qoi = [Statistics(f"Y[{ell}]", n_autocorr_window)
                           for ell in range(self.n_level)]
@@ -240,7 +258,7 @@ class MonteCarloMultiLevel:
                 tl.theta, cstate.x, tl.S_fine, tl.S_cond, seed,
                 beta=act.beta, beta_c=cact.beta,
                 Mt=lat.Mt_lat, Mx=lat.Mx_lat,
-                n_steps=chunk_size, t_sub=t_sub)
+                n_steps=chunk_size, t_sub=t_sub, chain0=self._chain0)
             st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
             st_cs = stats_mod.record_many(st_cs, four_pi2_inv * qc * qc)
             st_slow = stats_mod.record_many(st_slow, ec - ec_center)
@@ -252,7 +270,7 @@ class MonteCarloMultiLevel:
             # per-step cross-chain Y mean: the series behind the binning
             # cross-check of a window-capped tau
             return (cstate, tl_new, st_y, st_cs, st_slow, t_accum), \
-                torch.mean(y, dim=1)
+                self._ybar(y)
 
         return chunk
 
@@ -275,7 +293,8 @@ class MonteCarloMultiLevel:
             x, qsum, esum = schwinger_sweep_chain(
                 cstate.x, seed, beta=cact.beta,
                 Mt=lat.Mt_lat, Mx=lat.Mx_lat,
-                n_steps=chunk_size * t_sub, with_energy=True)
+                n_steps=chunk_size * t_sub, with_energy=True,
+                chain0=self._chain0)
             qoi = four_pi2_inv * qsum * qsum       # [chunk*t_sub, C]
             st_cs = stats_mod.record_many(st_cs, qoi)
             st_slow = stats_mod.record_many(st_slow, esum - ec_center)
@@ -285,7 +304,7 @@ class MonteCarloMultiLevel:
             t_accum = (sum_t + t_sub * chunk_size,
                        n_indep + float(chunk_size))
             return (type(cstate)(x=x), st_y, st_cs, st_slow, t_accum), \
-                torch.mean(y, dim=1)
+                self._ybar(y)
 
         return chunk_L
 
@@ -308,19 +327,21 @@ class MonteCarloMultiLevel:
                     "independent")
             self._unfused[ell] = self._make_unfused_chunk(
                 make_coarse_subsampler(self.coarse_samplers[ell],
-                                       self.qois[ell + 1]),
+                                       self.qois[ell + 1],
+                                       clock_view=self._gathered),
                 make_batched_screen(self.actions[ell], self.actions[ell + 1],
                                     step.conditioned_fine_action,
                                     self.qois[ell], self.qois[ell + 1]))
         if not self._fused_coarsest():
             self._unfused[self.n_level - 1] = self._make_unfused_chunk_L(
                 make_coarse_subsampler(self.coarsest_sampler,
-                                       self.qois[-1]))
+                                       self.qois[-1],
+                                       clock_view=self._gathered))
 
     def _make_unfused_chunk(self, draw_coarse, screen):
         def chunk(seed, carry, n_active):
             cstate, tl, st_y, st_cs, st_slow, t_accum = carry
-            gen = chunk_generator(seed, tl.theta.device)
+            gen = chunk_generator(seed, tl.theta.device, self._rank)
             xcs = []
             for _ in range(self.chunk_size):
                 cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
@@ -330,7 +351,7 @@ class MonteCarloMultiLevel:
             y = qf - qc
             st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
             return (cstate, tl, st_y, st_cs, st_slow, t_accum), \
-                torch.mean(y, dim=1)
+                self._ybar(y)
 
         return chunk
 
@@ -340,7 +361,7 @@ class MonteCarloMultiLevel:
         def chunk_L(seed, carry, n_active):
             cstate, st_y, st_cs, st_slow, t_accum = carry
             x = draw_coarse.sampler.x_of(cstate)
-            gen = chunk_generator(seed, x.device)
+            gen = chunk_generator(seed, x.device, self._rank)
             ys = []
             for _ in range(self.chunk_size):
                 cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
@@ -349,7 +370,7 @@ class MonteCarloMultiLevel:
             y = torch.stack(ys)
             st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
             return (cstate, st_y, st_cs, st_slow, t_accum), \
-                torch.mean(y, dim=1)
+                self._ybar(y)
 
         return chunk_L
 
@@ -372,15 +393,16 @@ class MonteCarloMultiLevel:
             # change only when the rate is too small or >= 4x too large
             return new if (new > cur or new * 4 <= cur) else cur
 
+        g = self._gathered
         for ell in range(self.n_level - 1):
             if self._fused_level(ell):
-                tau = max(self.stats_cs[ell].tau_int(carries[ell][3]),
-                          self.stats_slow[ell].tau_int(carries[ell][4]))
+                tau = max(self.stats_cs[ell].tau_int(g(carries[ell][3])),
+                          self.stats_slow[ell].tau_int(g(carries[ell][4])))
                 self._t_sub[ell] = ratchet(self._t_sub[ell], quantised(tau))
         if self._fused_coarsest():
             stats_L = Statistics("cs_L", self.stats_qoi[-1].k_max)
-            tau = max(stats_L.tau_int(carry_L[2]),
-                      self.stats_slow[-1].tau_int(carry_L[3]))
+            tau = max(stats_L.tau_int(g(carry_L[2])),
+                      self.stats_slow[-1].tau_int(g(carry_L[3])))
             self._t_sub[-1] = ratchet(self._t_sub[-1], quantised(tau))
 
     def _chunk(self, ell: int):
@@ -395,7 +417,8 @@ class MonteCarloMultiLevel:
     # -------------------------------------------------------------------------
 
     def evaluate(self, generator, n_chains: int, dtype=torch.float32,
-                 device="cuda", verbose: bool = False, sampling_scope=None):
+                 device="cuda", verbose: bool = False, sampling_scope=None,
+                 mesh=None):
         """Run the full MLMC estimation.  ``generator``: a CPU
         ``torch.Generator`` (or an int seed for one) from which every
         chunk's seed pair and the set-up noise are drawn; ``device``: where
@@ -404,7 +427,15 @@ class MonteCarloMultiLevel:
         versions, in any float dtype).  ``sampling_scope``: a context
         manager (a profiler, say) entered around the phases that record
         the estimate's samples, the cost measurement and the adaptive
-        loop.  Returns the per-level Y statistics states."""
+        loop.  Returns the per-level Y statistics states.
+
+        ``mesh``: a chain mesh (``parallel.chain_mesh``) whose ranks split
+        the n_chains chains; every rank calls this with the same arguments
+        (the same generator seed).  The returned statistics are gathered
+        over the mesh; ``final_carries`` holds this rank's chains."""
+        from mlmcpathintegral_tpu_torch.parallel.chains import (
+            all_reduce_scalar, chain_offset, shard_chains,
+        )
         t_start = time.monotonic()
         device = _cuda.run_device(device)
         self.timings = {}   # wall-clock per phase
@@ -413,8 +444,14 @@ class MonteCarloMultiLevel:
         # the run's generator
         next_seed, setup_gen = run_generators(generator, device)
 
+        # the set-up of every chain on every rank, then this rank's block
+        self._set_mesh(None, 0)
         carries, carry_L = self.init_carries(setup_gen, n_chains, dtype,
                                              device)
+        if mesh is not None:
+            carries = [shard_chains(mesh, c) for c in carries]
+            carry_L = shard_chains(mesh, carry_L)
+        self._set_mesh(mesh, chain_offset(mesh, n_chains))
         self.timings["prepare_s"] = time.monotonic() - t_start
 
         self.chunk_log = []   # (ell, n_chunks, dispatch_s, block_s)
@@ -433,7 +470,8 @@ class MonteCarloMultiLevel:
                 n = min(c_ell, n_more - done)
                 carry, ybar = chunk(next_seed(), carry, n)
                 if n > 0:
-                    self._ybar_history[ell].append(ybar[:n])
+                    self._ybar_history[ell].append(
+                        ybar[:n] if self._mesh is None else (ybar, n))
                 done += n
                 n_chunks += 1
             t_d1 = time.monotonic()
@@ -497,7 +535,10 @@ class MonteCarloMultiLevel:
                     carry_L = run_level(ell, carry_L, n_probe)
                 else:
                     carries[ell] = run_level(ell, carries[ell], n_probe)
-                per = (time.monotonic() - t0) / (n_probe * n_chains)
+                # every rank takes the slowest rank's time
+                per = all_reduce_scalar(
+                    self._mesh, time.monotonic() - t0, "max",
+                    operand_on=device) / (n_probe * n_chains)
                 self.cost_per_sample.append(per * 1e6)   # micro-seconds
             self.timings["cost_measure_s"] = time.monotonic() - t_cost0
 
@@ -509,7 +550,8 @@ class MonteCarloMultiLevel:
                 n_target = [self.n_samples] * L
 
             def st_y_of(ell):
-                return carry_L[1] if ell == L - 1 else carries[ell][2]
+                return self._gathered(carry_L[1] if ell == L - 1
+                                      else carries[ell][2])
 
             while True:
                 for ell in range(L - 1, -1, -1):
@@ -555,12 +597,15 @@ class MonteCarloMultiLevel:
 
         stats = [st_y_of(ell) for ell in range(L)]
         self._final_stats = stats
+        #: the per-level chunk carries the run ended with (this rank's
+        #: chains under a mesh): (carries of the levels < L-1, carry_L)
+        self.final_carries = (carries, carry_L)
         #: learned slow-mode (plaquette-energy) tau per fused level — the
         #: quantity the t_sub clock ran on (None on unfused levels, whose
         #: clock is the sampler's subsample_observable)
         self.tau_slow = [
-            self.stats_slow[ell].tau_int(carry_L[3] if ell == L - 1
-                                         else carries[ell][4])
+            self.stats_slow[ell].tau_int(self._gathered(
+                carry_L[3] if ell == L - 1 else carries[ell][4]))
             if self._is_fused(ell) else None
             for ell in range(L)]
         self.reliability = self._assess_reliability(stats)
@@ -612,6 +657,39 @@ class MonteCarloMultiLevel:
 
     # -------------------------------------------------------------------------
 
+    # -- chain mesh --------------------------------------------------------
+
+    def _set_mesh(self, mesh, chain0: int) -> None:
+        """The run's chain mesh (None: one process), this rank's first
+        global chain, which every kernel launch of the run hashes (the
+        fused chunks pass it, the samplers take it as ``chain0``), and its
+        rank, which seeds its unfused chunks' generators."""
+        self._mesh = mesh
+        self._chain0 = int(chain0)
+        self._rank = mesh.axis("chains").rank if mesh is not None else 0
+        for s in self.coarse_samplers + [self.coarsest_sampler]:
+            s.chain0 = self._chain0
+
+    def _gathered(self, state):
+        """A statistics state over the global chain axis."""
+        return stats_mod.gather(state, self._mesh)
+
+    def _ybar(self, y):
+        """What a chunk returns beside its carry: the per-step cross-chain
+        means of its Y [chunk, C]; under a mesh the rank's block of Y
+        itself, whose means are taken over the gathered chains where the
+        series is read (``_ybar_series``)."""
+        return torch.mean(y, dim=1) if self._mesh is None else y
+
+    def _ybar_series(self, h):
+        if not isinstance(h, tuple):
+            return h
+        y, n = h
+        y_all = stats_mod.gather(y.T, self._mesh).T.contiguous()
+        return torch.mean(y_all, dim=1)[:n]
+
+    # -------------------------------------------------------------------------
+
     def _reset_ybar(self, L: int):
         self._ybar_history = [[] for _ in range(L)]
         #: per-level (concatenated float64 host series, #chunks consumed)
@@ -624,7 +702,8 @@ class MonteCarloMultiLevel:
         hist = self._ybar_history[ell]
         cache, used = self._ybar_cache[ell]
         if len(hist) > used:
-            new = [h.double().cpu().numpy() for h in hist[used:]]
+            new = [self._ybar_series(h).double().cpu().numpy()
+                   for h in hist[used:]]
             cache = np.concatenate(([cache] if cache.size else []) + new)
             for i in range(used, len(hist)):
                 hist[i] = None
@@ -687,3 +766,20 @@ class MonteCarloMultiLevel:
         stats = stats if stats is not None else self._final_stats
         return math.sqrt(sum(self.stats_qoi[ell].error(stats[ell]) ** 2
                              for ell in range(self.n_level)))
+
+    def show_statistics(self, stats=None):
+        stats = stats if stats is not None else self._final_stats
+        print(f" Q: Avg +/- Err = {self.numerical_result(stats):.6f} "
+              f"+/- {self.statistical_error(stats):.6f}")
+        print(f" [timer MultilevelMC] : {self.elapsed_s:.4f} s")
+
+    def show_detailed_statistics(self, stats=None):
+        stats = stats if stats is not None else self._final_stats
+        print("=== Statistics of QoI ===")
+        for ell in range(self.n_level):
+            print(f"level = {ell}")
+            print(self.stats_qoi[ell].summary(stats[ell]))
+            print(f" target number of samples = {self.n_target[ell]}")
+            print(f" cost per sample          = "
+                  f"{self.cost_per_sample[ell]:.3f} mu s")
+            print("------------------------------------")

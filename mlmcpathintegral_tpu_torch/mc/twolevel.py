@@ -21,6 +21,17 @@ draw of an exact sampler or from the subsampler.  Each chunk takes a seed
 pair drawn from the run's ``torch.Generator``: the kernel takes it
 directly, an unfused chunk seeds a generator on the chains' device from
 it.
+
+Chain-parallel runs (``mesh=``, see parallel/chains.py): every rank builds
+the set-up state for all C chains from the same generator, keeps its block
+of C/W chains and draws the same chunk seeds; a kernel launch hashes the
+global chain index (``chain0`` = the rank's first chain), so the fused
+path's chains draw what they draw in a one-process run, bit for bit.  An
+unfused chunk's generator is seeded from the chunk seed and the rank: its
+noise is the rank's own, so that path equals the one-process run in
+distribution, not bit for bit.  The statistics getters and every decision
+(burn-in, sample targets, the t_sub clock, the acceptance rate) read the
+accumulators gathered over the group, the same numbers on every rank.
 """
 
 from __future__ import annotations
@@ -40,10 +51,14 @@ from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
 from mlmcpathintegral_tpu_torch.utils.timer import sync
 
 
-def chunk_generator(seed, device) -> torch.Generator:
-    """A generator on ``device`` seeded from a chunk's seed pair."""
+def chunk_generator(seed, device, rank: int = 0) -> torch.Generator:
+    """A generator on ``device`` seeded from a chunk's seed pair and, on a
+    chain mesh, the rank (rank 0 takes the one-process seed), so the
+    ranks' plain noise differs."""
     s1, s2 = seed_pair(seed)
-    return torch.Generator(device=device).manual_seed((s1 << 32) | s2)
+    mix = (rank * 0x9E3779B97F4A7C15) & ((1 << 64) - 1)
+    return torch.Generator(device=device).manual_seed(((s1 << 32) | s2)
+                                                      ^ mix)
 
 
 def run_generators(generator, device):
@@ -64,11 +79,14 @@ def run_generators(generator, device):
     return next_seed, setup_gen
 
 
-def make_coarse_subsampler(coarse_sampler, qoi_coarse, t_max: int = 100):
+def make_coarse_subsampler(coarse_sampler, qoi_coarse, t_max: int = 100,
+                           clock_view=None):
     """Returns draw(generator, cstate, stats_cs, t_accum) -> (cstate,
     stats_cs, t_accum), which draws one roughly independent coarse sample;
     t_accum accumulates (sum of t, number of samples) for the t_indep
-    estimate.
+    estimate.  ``clock_view(stats_cs)``: the state the clock reads (the
+    accumulators gathered over a chain mesh, so every rank draws the same
+    t), by default stats_cs itself.
 
     The clock records the sampler's ``subsample_observable`` when it has
     one, else the coarse QoI (the reference's rule,
@@ -79,13 +97,15 @@ def make_coarse_subsampler(coarse_sampler, qoi_coarse, t_max: int = 100):
     needs one draw per sample."""
     independent = getattr(coarse_sampler, "independent_draws", False)
     clock_obs = getattr(coarse_sampler, "subsample_observable", qoi_coarse)
+    view = clock_view if clock_view is not None else (lambda st: st)
 
     def draw_coarse_sample(generator, cstate, stats_cs, t_accum):
         if independent:
             t = 1
         else:
             t = int(torch.clamp(torch.ceil(
-                2.0 * stats_mod.tau_int_device(stats_cs)), max=float(t_max)))
+                2.0 * stats_mod.tau_int_device(view(stats_cs))),
+                max=float(t_max)))
         for _ in range(t):
             cstate, _ = coarse_sampler.draw(generator, cstate)
             stats_cs = stats_mod.record(
@@ -227,8 +247,10 @@ class MonteCarloTwoLevel:
                 "the sequential two-level screen for fills that read the "
                 "current fine state is not ported (ROADMAP.md item 9); "
                 "every ported fill is independent")
+        self._set_mesh(None, 0)
         self._chunk = self._make_batched_chunk(
-            make_coarse_subsampler(self.coarse_sampler, self.qoi_coarse),
+            make_coarse_subsampler(self.coarse_sampler, self.qoi_coarse,
+                                   clock_view=self._gathered),
             make_batched_screen(fine_action, self.coarse_action,
                                 self.conditioned_fine_action, self.qoi_fine,
                                 self.qoi_coarse))
@@ -246,7 +268,7 @@ class MonteCarloTwoLevel:
 
         def chunk(seed, carry, n_active):
             cstate, tl, st_f, st_c, st_d, st_cs, t_accum = carry
-            gen = chunk_generator(seed, tl.theta.device)
+            gen = chunk_generator(seed, tl.theta.device, self._rank)
             s_cc_pre = None
             if batch_draw is not None:
                 if bdwa is not None:
@@ -327,7 +349,8 @@ class MonteCarloTwoLevel:
             fine, xc, scache, dt, st_f, st_c, st_d, st_cs, st_slow = carry
             fine, xc, scache, qf, qc, cs, ec, acc = qm_twolevel_chain(
                 fine, xc, scache, dt, seed, nt=nt, n_steps=chunk_size,
-                t_sub=t_sub, with_traces=with_traces, **p)
+                t_sub=t_sub, with_traces=with_traces, chain0=self._chain0,
+                **p)
             st_f = stats_mod.record_block(st_f, qf, n_valid=n_active)
             st_c = stats_mod.record_block(st_c, qc, n_valid=n_active)
             st_d = stats_mod.record_block(st_d, qf - qc, n_valid=n_active)
@@ -346,34 +369,108 @@ class MonteCarloTwoLevel:
         """t_sub from the measured clock: ceil(2 max(tau_QoI, tau_slow)) of
         the per-trajectory coarse traces, floored at t_sub_min and capped
         at 100 (montecarlotwolevel.cc:82-94 and the slow-mode rule)."""
-        tau_q = stats_mod.tau_int_device(self._st_cs_last)
-        tau_e = stats_mod.tau_int_device(self._st_slow_last)
+        tau_q = stats_mod.tau_int_device(self._gathered(self._st_cs_last))
+        tau_e = stats_mod.tau_int_device(self._gathered(self._st_slow_last))
         tau = float(torch.maximum(tau_q, tau_e))
         self.tau_slow = float(tau_e)
         return int(min(100, max(self.t_sub_min, math.ceil(2.0 * tau))))
 
-    def _evaluate_difference_fused(self, generator, n_chains, dtype, device,
-                                   sampling_scope):
+    # -- chain mesh ----------------------------------------------------------
+
+    def _set_mesh(self, mesh, chain0: int) -> None:
+        """The run's chain mesh (None: one process), this rank's first
+        global chain, which its kernel launches hash, and its rank, which
+        seeds its unfused chunks' generators."""
+        self._mesh = mesh
+        self._chain0 = int(chain0)
+        self._rank = mesh.axis("chains").rank if mesh is not None else 0
+        self.coarse_sampler.chain0 = self._chain0
+
+    def _gathered(self, state):
+        """A statistics state over the global chain axis."""
+        return stats_mod.gather(state, self._mesh)
+
+    def init_carry(self, setup_gen, n_chains: int, dtype, device):
+        """The chunk carry a run starts from, for ``n_chains`` chains on
+        ``device`` with set-up noise from ``setup_gen`` (a generator on
+        ``device``): the coarse sampler prepared (with its burn-in), the
+        fine chain from prolongate + fill of the initial coarse sample (a
+        draw from the proposal itself, so the screened chain never starts
+        in its tail), cached actions and empty statistics.  The fused
+        path's carry holds the kernel's planes and cached (S_fine,
+        S_cond); the batched path's the sampler state and a
+        ``TwoLevelState``."""
         from mlmcpathintegral_tpu_torch.convert import qm_planes, qm_s_cache
-        t0 = time.monotonic()
-        self.timings = {}
-        next_seed, setup_gen = run_generators(generator, device)
+        device = torch.device(device)
         cstate = self.coarse_sampler.prepare(setup_gen, n_chains, dtype,
                                              device)
         x_fine = self.fine_action.initialise_state(setup_gen, n_chains,
                                                    dtype, device)
-        x_fine = self.fine_action.prolongate(cstate.x, x_fine)
+        x_fine = self.fine_action.prolongate(
+            self.coarse_sampler.x_of(cstate), x_fine)
         x_fine = self.conditioned_fine_action.fill_fine_points(setup_gen,
                                                                x_fine)
-        carry = (qm_planes(x_fine), cstate.x,
-                 qm_s_cache(self.fine_action, self.conditioned_fine_action,
-                            x_fine), cstate.dt,
-                 self.stats_fine.init(n_chains, dtype, device),
+        stats = (self.stats_fine.init(n_chains, dtype, device),
                  self.stats_coarse.init(n_chains, dtype, device),
                  self.stats_diff.init(n_chains, dtype, device),
-                 self.stats_cs.init(n_chains, dtype, device),
-                 self.stats_slow.init(n_chains, dtype, device))
+                 self.stats_cs.init(n_chains, dtype, device))
+        if self._runs_fused(device):
+            carry = (qm_planes(x_fine), cstate.x,
+                     qm_s_cache(self.fine_action,
+                                self.conditioned_fine_action, x_fine),
+                     cstate.dt) + stats + (
+                self.stats_slow.init(n_chains, dtype, device),)
+        else:
+            zero = torch.zeros((), dtype=dtype, device=device)
+            carry = (cstate, self.twolevel_step.init(x_fine)) + stats + (
+                (zero, zero),)
         sync(carry)
+        return carry
+
+    def _start(self, generator, n_chains, dtype, device, mesh):
+        """(next_seed, carry, local chain count) of a run: the set-up for
+        all n_chains chains on every rank (as the JAX package builds and
+        then shards), this rank's block of it under a mesh."""
+        from mlmcpathintegral_tpu_torch.parallel.chains import (
+            chain_offset, shard_chains,
+        )
+        self._set_mesh(None, 0)
+        next_seed, setup_gen = run_generators(generator, device)
+        carry = self.init_carry(setup_gen, n_chains, dtype, device)
+        n_local = n_chains
+        if mesh is not None:
+            if self._runs_fused(torch.device(device)):
+                # the kernel's planes [2, C, Mc] and caches [2, C] hold the
+                # chains on their second axis
+                fine, xc, scache = carry[:3]
+                fine, scache = shard_chains(
+                    mesh, (fine.transpose(0, 1), scache.transpose(0, 1)))
+                carry = (fine.transpose(0, 1).contiguous(),
+                         *shard_chains(mesh, (xc,)),
+                         scache.transpose(0, 1).contiguous(),
+                         *shard_chains(mesh, carry[3:]))
+            else:
+                carry = shard_chains(mesh, carry)
+            n_local = n_chains // mesh.axis("chains").world_size
+        self._set_mesh(mesh, chain_offset(mesh, n_chains))
+        return next_seed, carry, n_local
+
+    def _p_accept(self, n_accepted, n_done: int, n_chains: int,
+                  device) -> float:
+        """The acceptance rate over every rank's chains."""
+        from mlmcpathintegral_tpu_torch.parallel.chains import (
+            all_reduce_scalar,
+        )
+        total = all_reduce_scalar(self._mesh, float(n_accepted), "sum",
+                                  operand_on=device)
+        return total / (n_done * n_chains)
+
+    def _evaluate_difference_fused(self, generator, n_chains, dtype, device,
+                                   sampling_scope, mesh):
+        t0 = time.monotonic()
+        self.timings = {}
+        next_seed, carry, n_local = self._start(generator, n_chains, dtype,
+                                                device, mesh)
         self.timings["prepare_s"] = time.monotonic() - t0
 
         t_phase = time.monotonic()
@@ -396,9 +493,9 @@ class MonteCarloTwoLevel:
         # hard reset of the Y statistics after burn-in
         # (montecarlotwolevel.cc:66-69)
         carry = carry[:4] + (
-            self.stats_fine.init(n_chains, dtype, device),
-            self.stats_coarse.init(n_chains, dtype, device),
-            self.stats_diff.init(n_chains, dtype, device)) + carry[7:]
+            self.stats_fine.init(n_local, dtype, device),
+            self.stats_coarse.init(n_local, dtype, device),
+            self.stats_diff.init(n_local, dtype, device)) + carry[7:]
         sync(carry)
         self.timings["tsub_update_s"] = time.monotonic() - t_phase
 
@@ -416,16 +513,19 @@ class MonteCarloTwoLevel:
             self.timings["sampling_s"] = time.monotonic() - t_phase
         self.n_sampling_draws = self._drawn(n_done)
         self.elapsed_s = time.monotonic() - t0
+        self.final_carry = carry
         _, _, _, _, st_f, st_c, st_d, st_cs, st_slow = carry
-        self.p_accept = float(n_accepted) / (n_done * n_chains)
+        self.p_accept = self._p_accept(n_accepted, n_done, n_chains, device)
         self.t_indep = float(t_sub)
         self._st_cs_last, self._st_slow_last = st_cs, st_slow
-        return {"fine": st_f, "coarse": st_c, "diff": st_d,
-                "coarse_sampler": st_cs, "coarse_slow": st_slow}
+        g = self._gathered
+        return {"fine": g(st_f), "coarse": g(st_c), "diff": g(st_d),
+                "coarse_sampler": g(st_cs), "coarse_slow": g(st_slow)}
 
     def evaluate_difference(self, generator, n_chains: int,
                             dtype=torch.float32, device="cuda",
-                            verbose: bool = False, sampling_scope=None):
+                            verbose: bool = False, sampling_scope=None,
+                            mesh=None):
         """Burn-in, then record n_samples of (Q_f, Q_c, Y); returns the
         statistics states by name (montecarlotwolevel.cc:38-79).
         ``generator``: a CPU ``torch.Generator`` (or an int seed for one)
@@ -434,35 +534,26 @@ class MonteCarloTwoLevel:
         for the CPU ("cuda" runs the kernels, which take float32; "cpu"
         their plain versions, in any float dtype); ``sampling_scope``: a
         context manager (a profiler, say) entered around the sampling
-        phase, outside its timer."""
+        phase, outside its timer.
+
+        ``mesh``: a chain mesh (``parallel.chain_mesh``) whose ranks split
+        the n_chains chains, each rank calling this with the same
+        arguments (the same generator seed); the returned statistics are
+        gathered over the mesh, and ``final_carry`` holds this rank's
+        chains.  The fused path stays fused: its kernel takes the rank's
+        chain offset (the JAX package drops to the unfused screen under a
+        mesh only because a Pallas call does not partition)."""
         device = _cuda.run_device(device)
         if self._runs_fused(device):
             return self._evaluate_difference_fused(generator, n_chains,
                                                    dtype, device,
-                                                   sampling_scope)
+                                                   sampling_scope, mesh)
         t0 = time.monotonic()
         self.timings = {}
-        next_seed, setup_gen = run_generators(generator, device)
-        cstate = self.coarse_sampler.prepare(setup_gen, n_chains, dtype,
-                                             device)
-        # the fine chain starts from prolongate + fill of the initial
-        # coarse sample: a draw from the proposal itself, so the screened
-        # chain never starts in its tail
-        x_fine = self.fine_action.initialise_state(setup_gen, n_chains,
-                                                   dtype, device)
-        x_fine = self.fine_action.prolongate(
-            self.coarse_sampler.x_of(cstate), x_fine)
-        x_fine = self.conditioned_fine_action.fill_fine_points(setup_gen,
-                                                               x_fine)
-        zero = torch.zeros((), dtype=dtype, device=device)
-        carry = (cstate, self.twolevel_step.init(x_fine),
-                 self.stats_fine.init(n_chains, dtype, device),
-                 self.stats_coarse.init(n_chains, dtype, device),
-                 self.stats_diff.init(n_chains, dtype, device),
-                 self.stats_cs.init(n_chains, dtype, device), (zero, zero))
+        next_seed, carry, n_local = self._start(generator, n_chains, dtype,
+                                                device, mesh)
         # accepted moves accumulate on the device: no host read per chunk
         n_accepted = torch.zeros((), dtype=torch.float64, device=device)
-        sync(carry)
         self.timings["prepare_s"] = time.monotonic() - t0
 
         # burn-in, then a hard reset of the Y statistics
@@ -474,9 +565,9 @@ class MonteCarloTwoLevel:
             carry, _ = self._chunk(next_seed(), carry, n)
             n_burn += n
         cstate, tl, _, _, _, st_cs, t_accum = carry
-        carry = (cstate, tl, self.stats_fine.init(n_chains, dtype, device),
-                 self.stats_coarse.init(n_chains, dtype, device),
-                 self.stats_diff.init(n_chains, dtype, device), st_cs,
+        carry = (cstate, tl, self.stats_fine.init(n_local, dtype, device),
+                 self.stats_coarse.init(n_local, dtype, device),
+                 self.stats_diff.init(n_local, dtype, device), st_cs,
                  t_accum)
         if verbose:
             print("Burnin completed")
@@ -498,11 +589,13 @@ class MonteCarloTwoLevel:
             self.timings["sampling_s"] = time.monotonic() - t_phase
         self.n_sampling_draws = self._drawn(n_done)
         self.elapsed_s = time.monotonic() - t0
+        self.final_carry = carry
         _, _, st_f, st_c, st_d, st_cs, (sum_t, n_indep) = carry
-        self.p_accept = float(n_accepted) / (n_done * n_chains)
+        self.p_accept = self._p_accept(n_accepted, n_done, n_chains, device)
         self.t_indep = float(sum_t) / max(float(n_indep), 1.0)
-        return {"fine": st_f, "coarse": st_c, "diff": st_d,
-                "coarse_sampler": st_cs}
+        g = self._gathered
+        return {"fine": g(st_f), "coarse": g(st_c), "diff": g(st_d),
+                "coarse_sampler": g(st_cs)}
 
     def _drawn(self, n_recorded: int) -> int:
         """Samples a chain drew in a phase that recorded ``n_recorded``:

@@ -45,35 +45,35 @@ c_size = ctypes.c_size_t
 #: argtypes of every exported C function (all return a cudaError_t as int)
 _SIGNATURES = {
     "mlmc_max_smem_optin": [c_int, ctypes.POINTER(c_int)],
-    "mlmc_rng_fill": [c_ptr, c_ptr, c_ptr, c_u32, c_u32] + [c_int] * 9
-    + [c_ptr],
+    "mlmc_rng_fill": [c_ptr, c_ptr, c_ptr, c_u32, c_u32, c_u32]
+    + [c_int] * 9 + [c_ptr],
     "mlmc_schwinger_sweep": [c_ptr] * 5 + [c_int] * 8
-    + [c_float, c_u32, c_u32, c_int, c_int, c_size, c_ptr],
+    + [c_float, c_u32, c_u32, c_u32, c_int, c_int, c_size, c_ptr],
     "mlmc_gff_sweep": [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
-                       c_float, c_float, c_u32, c_u32, c_int, c_int, c_int,
-                       c_size, c_ptr],
+                       c_float, c_float, c_u32, c_u32, c_u32, c_int, c_int,
+                       c_int, c_size, c_ptr],
     "mlmc_gff_nbsum": [c_ptr, c_ptr] + [c_int] * 8 + [c_ptr],
     "mlmc_gff_sweep_attrs": [c_int, c_size, c_int, ctypes.POINTER(c_int)],
     "mlmc_schwinger_sweep_attrs": [c_int, c_size, c_int,
                                    ctypes.POINTER(c_int)],
     "mlmc_schwinger_twolevel": [c_ptr] * 13 + [c_int] * 13 + [c_float] * 5
-    + [c_u32, c_u32, c_int, c_int, c_size, c_ptr],
+    + [c_u32, c_u32, c_u32, c_int, c_int, c_size, c_ptr],
     "mlmc_schwinger_twolevel_attrs": [c_int, c_size, c_int,
                                       ctypes.POINTER(c_int)],
     "mlmc_rotor_sweep": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
-                         c_int, c_int, c_float, c_u32, c_u32, c_int, c_int,
-                         c_size, c_ptr],
+                         c_int, c_int, c_float, c_u32, c_u32, c_u32, c_int,
+                         c_int, c_size, c_ptr],
     "mlmc_rotor_sweep_attrs": [c_int, c_size, ctypes.POINTER(c_int)],
     "mlmc_rotor_cluster": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
-                           c_float, c_u32, c_u32, c_int, c_int, c_size,
-                           c_ptr],
+                           c_float, c_u32, c_u32, c_u32, c_int, c_int,
+                           c_size, c_ptr],
     "mlmc_rotor_cluster_attrs": [c_int, c_size, ctypes.POINTER(c_int)],
     "mlmc_hmc_trajectory": [c_ptr] * 6 + [c_int] * 4 + [c_float] * 9
     + [c_int, c_int, c_int, c_size, c_ptr],
     "mlmc_hmc_trajectory_attrs": [c_int, c_int, c_int, c_size,
                                   ctypes.POINTER(c_int)],
     "mlmc_qm_twolevel": [c_ptr] * 12 + [c_int] * 6 + [c_float] * 17
-    + [c_u32, c_u32, c_int, c_int, c_int, c_ptr],
+    + [c_u32, c_u32, c_u32, c_int, c_int, c_int, c_ptr],
     "mlmc_qm_twolevel_attrs": [c_int, c_int, ctypes.POINTER(c_int)],
 }
 

@@ -113,12 +113,12 @@ def _sigma(kappa: float) -> float:
 
 
 def gff_sweep_plain(phi, seed, *, kappa, Mt, Mx, n_overrelax=0,
-                    n_heatbath=1):
+                    n_heatbath=1, chain0=0):
     """Plain PyTorch version of the kernel (any device, any float dtype):
     the Pallas kernel's arithmetic, whole-lattice masked updates."""
     SWEEP.count_plain(phi)
     C = phi.shape[0]
-    check_element_capacity(Mx * Mt, C)
+    check_element_capacity(Mx * Mt, C, chain0)
     seed1, seed2 = seed_pair(seed)
     kappa = float(kappa)
     sigma = _sigma(kappa)
@@ -128,7 +128,7 @@ def gff_sweep_plain(phi, seed, *, kappa, Mt, Mx, n_overrelax=0,
         for mask in masks:
             g = torch.where(mask, 2.0 * _nbsum_grid(g) / kappa - g, g)
     if n_heatbath:
-        site, chain = element_ids((Mx, Mt), C, phi.device)
+        site, chain = element_ids((Mx, Mt), C, phi.device, chain0)
         rng = CounterRng(seed1, site, chain, seed2)
         for _ in range(n_heatbath):
             for mask in masks:
@@ -167,13 +167,14 @@ def sweep_attrs(Mt: int, Mx: int, n_chains: int):
                               BRANCHES[branch])
 
 
-def _sweep_cuda(phi, seed, *, kappa, Mt, Mx, n_overrelax, n_heatbath):
+def _sweep_cuda(phi, seed, *, kappa, Mt, Mx, n_overrelax, n_heatbath,
+                chain0):
     C = phi.shape[0]
     _cuda.require_cuda("phi", phi, (C, Mx * Mt))
     if Mt % 2 or Mx % 2:
         raise ValueError(f"the GFF sweep kernel updates a colour in place "
                          f"and needs even Mt and Mx, got {Mt}x{Mx}")
-    check_element_capacity(Mx * Mt, C)
+    check_element_capacity(Mx * Mt, C, chain0)
     lanes, cpb, smem, branch = sweep_launch(
         Mt, Mx, C, _cuda.max_smem_optin(phi.device.index or 0))
     seed1, seed2 = seed_pair(seed)
@@ -181,21 +182,24 @@ def _sweep_cuda(phi, seed, *, kappa, Mt, Mx, n_overrelax, n_heatbath):
     kappa = float(kappa)
     err = _cuda.load_library().mlmc_gff_sweep(
         phi.data_ptr(), out.data_ptr(), C, Mx, Mt, n_overrelax, n_heatbath,
-        kappa, _sigma(kappa), seed1, seed2, lanes, cpb, BRANCHES[branch],
+        kappa, _sigma(kappa), seed1, seed2, chain0, lanes, cpb,
+        BRANCHES[branch],
         smem, _cuda.stream_ptr(phi.device))
     _cuda.check_status(err, "gff_sweep kernel launch")
     SWEEP.launches += 1
     return out
 
 
-def gff_sweep(phi, seed, *, kappa, Mt, Mx, n_overrelax=0, n_heatbath=1):
+def gff_sweep(phi, seed, *, kappa, Mt, Mx, n_overrelax=0, n_heatbath=1,
+              chain0=0):
     """Fused GFF sweeps on all chains.
 
     phi: [C, Mx*Mt] flat fields (vertex l = Mt*j + i); seed: an int, an
     int32[1] or int32[2] tensor or a pair (a single word takes seed2 = 0);
-    kappa = 4 + mu2.  Returns the swept phi."""
+    kappa = 4 + mu2; chain0: the global index of phi's first chain.
+    Returns the swept phi."""
     kw = dict(kappa=kappa, Mt=Mt, Mx=Mx, n_overrelax=n_overrelax,
-              n_heatbath=n_heatbath)
+              n_heatbath=n_heatbath, chain0=chain0)
     if _cuda.dispatch_device(phi) == "cpu":
         return gff_sweep_plain(phi, seed, **kw)
     return _sweep_cuda(phi, seed, **kw)

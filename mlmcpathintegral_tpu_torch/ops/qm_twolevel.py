@@ -69,19 +69,19 @@ def _w_min_curv(x_m, x_p, *, m0, mu2, lam, x0, a):
 
 def qm_twolevel_chain_plain(fine, x_coarse, s_cache, dt, seed, *, m0, mu2,
                             lam=0.0, x0=0.0, a_lat, nt, n_steps, t_sub,
-                            with_traces=True):
+                            with_traces=True, chain0=0):
     """Plain PyTorch version of the two-level kernel (any device, any float
     dtype); arguments and results as :func:`qm_twolevel_chain`."""
     QM_TWOLEVEL.count_plain(fine)
     _, C, Mc = fine.shape
-    check_element_capacity(Mc, C)
+    check_element_capacity(Mc, C, chain0)
     dtype = fine.dtype
     p_ = dict(m0=float(m0), mu2=float(mu2), lam=float(lam), x0=float(x0))
     fp = dict(p_, a=float(a_lat))
     force_c, action_c = force_and_action("quartic", **p_,
                                          a=2.0 * float(a_lat))
     seed1, seed2 = seed_pair(seed)
-    site, chain = element_ids((Mc,), C, fine.device)
+    site, chain = element_ids((Mc,), C, fine.device, chain0)
     dt = torch.as_tensor(dt, dtype=dtype, device=fine.device)
     inv_M, inv_Mc = 1.0 / (2 * Mc), 1.0 / Mc
     xe, xo, xc = fine[0], fine[1], x_coarse
@@ -169,14 +169,14 @@ def qm_twolevel_attrs(Mc: int, n_chains: int):
 
 
 def _qm_twolevel_cuda(fine, x_coarse, s_cache, dt, seed, *, m0, mu2, lam,
-                      x0, a_lat, nt, n_steps, t_sub, with_traces):
+                      x0, a_lat, nt, n_steps, t_sub, with_traces, chain0):
     _, C, Mc = fine.shape
     _cuda.require_cuda("fine", fine, (2, C, Mc))
     _cuda.require_cuda("x_coarse", x_coarse, (C, Mc))
     _cuda.require_cuda("s_cache", s_cache, (2, C))
     dt = torch.as_tensor(dt, dtype=torch.float32, device=fine.device)
     _cuda.require_cuda("dt", dt.reshape(1), (1,))
-    check_element_capacity(Mc, C)
+    check_element_capacity(Mc, C, chain0)
     lanes, sites, cpb, _ = qm_twolevel_launch(Mc, C)
     seed1, seed2 = seed_pair(seed)
     m0, mu2, lam, x0, a = (float(m0), float(mu2), float(lam), float(x0),
@@ -200,7 +200,7 @@ def _qm_twolevel_cuda(fine, x_coarse, s_cache, dt, seed, *, m0, mu2, lam,
         0.5 * lam, 0.5 * ac, 0.5 * a, a * a,
         1.0 / (1.0 + 0.5 * a * a * mu2), 0.5 * a * a * lam / m0,
         (2.0 / a + a * mu2) * m0, 3.0 * lam * a, 1.0 / (2 * Mc), 1.0 / Mc,
-        seed1, seed2, lanes, lanes * cpb, sites,
+        seed1, seed2, chain0, lanes, lanes * cpb, sites,
         _cuda.stream_ptr(fine.device))
     _cuda.check_status(err, "qm_twolevel kernel launch")
     QM_TWOLEVEL.launches += 1
@@ -208,7 +208,8 @@ def _qm_twolevel_cuda(fine, x_coarse, s_cache, dt, seed, *, m0, mu2, lam,
 
 
 def qm_twolevel_chain(fine, x_coarse, s_cache, dt, seed, *, m0, mu2, lam=0.0,
-                      x0=0.0, a_lat, nt, n_steps, t_sub, with_traces=True):
+                      x0=0.0, a_lat, nt, n_steps, t_sub, with_traces=True,
+                      chain0=0):
     """Run ``n_steps`` of the fused QM two-level chain on all chains.
 
     fine: [2, C, Mc] even/odd site planes of the current fine paths;
@@ -218,9 +219,11 @@ def qm_twolevel_chain(fine, x_coarse, s_cache, dt, seed, *, m0, mu2, lam=0.0,
     an int32 pair.  Returns (fine, x_coarse, s_cache, qf [n_steps, C],
     qc [n_steps, C], cs, ec, acc [n_steps, C]) with cs/ec the per-trajectory
     coarse QoI and coarse action traces [n_steps * t_sub, C], or [1, C]
-    zeros with ``with_traces=False``."""
+    zeros with ``with_traces=False``.  ``chain0``: the global index of the
+    first chain (a rank's offset under a chain mesh)."""
     kw = dict(m0=m0, mu2=mu2, lam=lam, x0=x0, a_lat=a_lat, nt=nt,
-              n_steps=n_steps, t_sub=t_sub, with_traces=with_traces)
+              n_steps=n_steps, t_sub=t_sub, with_traces=with_traces,
+              chain0=chain0)
     if _cuda.dispatch_device(fine) == "cpu":
         return qm_twolevel_chain_plain(fine, x_coarse, s_cache, dt, seed,
                                        **kw)

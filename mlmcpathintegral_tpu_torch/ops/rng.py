@@ -5,7 +5,9 @@
 Each element keys two 32-bit lanes — one from its site index (+ per-step
 seed and step counter), one from its global chain index (+ second seed
 word) — advanced by a shared draw counter and combined through a final
-avalanche:
+avalanche.  A launch over chains [chain0, chain0 + C) of a larger run (one
+rank's block under a chain mesh) hashes chain0 + its local chain, so its
+chains draw what the same chains of the whole launch draw:
 
     bits = fmix32( fmix32(base_site + ctr*C1) + fmix32(base_chain + ctr*C2) )
 
@@ -69,9 +71,14 @@ def seed_pair(seed):
     return seed[0] & M32, seed[1] & M32
 
 
-def check_element_capacity(n_sites: int, n_chains: int) -> None:
+def check_element_capacity(n_sites: int, n_chains: int,
+                           chain0: int = 0) -> None:
     """Reject configurations whose per-lane ids would wrap uint32 — a
-    silent wrap would hand identical noise streams to distinct sites."""
+    silent wrap would hand identical noise streams to distinct sites.
+    ``chain0``: the global index of the launch's first chain."""
+    if chain0 < 0:
+        raise ValueError(f"chain0 must be >= 0, got {chain0}")
+    n_chains = chain0 + n_chains
     if n_sites > MAX_SITES or n_chains > MAX_CHAINS:
         raise ValueError(
             f"counter RNG supports up to {MAX_SITES} sites and "
@@ -79,16 +86,18 @@ def check_element_capacity(n_sites: int, n_chains: int) -> None:
             f"{n_chains} chains); larger lattices need a wider id scheme")
 
 
-def element_ids(site_shape, n_chains: int, device):
+def element_ids(site_shape, n_chains: int, device, chain0: int = 0):
     """(site_id, chain_id) int64 tensors: site_id of shape ``site_shape``
     enumerates the site axes in row-major order, chain_id of shape
-    [n_chains, 1, ..., 1] is the global chain index.  They broadcast to
-    [n_chains, *site_shape], the chain-first layout of the plain kernels
-    (the Pallas kernels put chains last; the ids are the same)."""
+    [n_chains, 1, ..., 1] is the global chain index chain0 + local.  They
+    broadcast to [n_chains, *site_shape], the chain-first layout of the
+    plain kernels (the Pallas kernels put chains last; the ids are the
+    same)."""
     n_sites = math.prod(site_shape)
     site = torch.arange(n_sites, dtype=torch.int64,
                         device=device).reshape(site_shape)
-    chain = torch.arange(n_chains, dtype=torch.int64, device=device)
+    chain = torch.arange(chain0, chain0 + n_chains, dtype=torch.int64,
+                         device=device)
     return site, chain.reshape(n_chains, *([1] * len(site_shape)))
 
 
@@ -209,11 +218,12 @@ def _check_stepless(step0, n_steps) -> None:
 
 
 def rng_fill_plain(seed, *, n_sites, n_chains, n_steps, n_ctr, device,
-                   step0=0):
+                   step0=0, chain0=0):
     """Plain version of :func:`rng_fill`."""
     _check_stepless(step0, n_steps)
+    check_element_capacity(n_sites, n_chains, chain0)
     seed1, seed2 = seed_pair(seed)
-    site, chain = element_ids((n_sites,), n_chains, device)
+    site, chain = element_ids((n_sites,), n_chains, device, chain0)
     if torch.device(device).type == "cuda":
         RNG_FILL.plain_cuda_calls += 1
     bits, uni, nrm = [], [], []
@@ -232,7 +242,7 @@ def rng_fill_plain(seed, *, n_sites, n_chains, n_steps, n_ctr, device,
 
 
 def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
-             device="cuda"):
+             device="cuda", chain0=0):
     """The counter RNG's words for every (step, ctr, chain, site) with
     step = step0 .. step0+n_steps-1, ctr = 1 .. n_ctr: returns
     (bits int64 [n_steps, n_ctr, n_chains, n_sites] holding uint32 values,
@@ -240,8 +250,10 @@ def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
     [n_steps, n_ctr//2, n_chains, n_sites] from the word pairs
     (2k+1, 2k+2)).  ``step0=None`` takes the step-less streams (no step
     index folded into the site lane; ``n_steps`` must be 1), which the GFF
-    sweep kernel draws from.  Runs the kernel on the card unless
-    ``device`` is the CPU, where the plain version runs.  The kernel
+    sweep kernel draws from.  ``chain0``: the global index of the grid's
+    first chain (its chains are chain0 .. chain0+n_chains-1).  Runs the
+    kernel on the card unless ``device`` is the CPU, where the plain
+    version runs.  The kernel
     writes the bits as uint32; widening them to int64 is a pass of its
     own after the launch."""
     device = _cuda.run_device(device)
@@ -249,8 +261,8 @@ def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
     if device.type == "cpu":
         return rng_fill_plain(seed, n_sites=n_sites, n_chains=n_chains,
                               n_steps=n_steps, n_ctr=n_ctr, step0=step0,
-                              device=device)
-    check_element_capacity(n_sites, n_chains)
+                              device=device, chain0=chain0)
+    check_element_capacity(n_sites, n_chains, chain0)
     launch = fill_launch(n_sites, n_chains, n_steps, n_ctr)
     seed1, seed2 = seed_pair(seed)
     shape = (n_steps, n_ctr, n_chains, n_sites)
@@ -260,7 +272,7 @@ def rng_fill(seed, *, n_sites, n_chains, n_steps, n_ctr, step0=0,
                       dtype=torch.float32, device=device)
     err = _cuda.load_library().mlmc_rng_fill(
         bits.data_ptr(), uni.data_ptr(), nrm.data_ptr(), seed1, seed2,
-        n_sites, n_chains, step0 or 0, n_steps, n_ctr, int(step0 is None),
+        chain0, n_sites, n_chains, step0 or 0, n_steps, n_ctr, int(step0 is None),
         *launch, _cuda.stream_ptr(device))
     _cuda.check_status(err, "rng_fill kernel launch")
     RNG_FILL.launches += 1

@@ -89,16 +89,16 @@ def _parity_winding(e, o):
 
 
 def rotor_sweep_chain_plain(x, seed, *, kappa, M, n_steps, n_overrelax=1,
-                            n_heatbath=1, k_rej=8):
+                            n_heatbath=1, k_rej=8, chain0=0):
     """Plain PyTorch version of the sweep kernel (any device, any float
     dtype): returns (x', wsum[n_steps, C])."""
     SWEEP.count_plain(x)
     C = x.shape[0]
     _check_even(M)
-    check_element_capacity(M // 2, C)
+    check_element_capacity(M // 2, C, chain0)
     seed1, seed2 = seed_pair(seed)
     e, o = x[:, 0::2], x[:, 1::2]
-    site, chain = element_ids((M // 2,), C, x.device)
+    site, chain = element_ids((M // 2,), C, x.device, chain0)
     ws = []
     for s in range(n_steps):
         rng = CounterRng(seed1, site, chain, seed2, step=s)
@@ -152,11 +152,11 @@ def sweep_attrs(M: int, n_chains: int):
 
 
 def _sweep_cuda(x, seed, *, kappa, M, n_steps, n_overrelax, n_heatbath,
-                k_rej, want_w):
+                k_rej, want_w, chain0):
     C = x.shape[0]
     _check_even(M)
     _cuda.require_cuda("x", x, (C, M))
-    check_element_capacity(M // 2, C)
+    check_element_capacity(M // 2, C, chain0)
     cpb, smem, words = sweep_launch(
         M, C, _cuda.max_smem_optin(x.device.index or 0))
     _cuda.check_smem(smem, x.device, f"the M={M} rotor path")
@@ -167,31 +167,32 @@ def _sweep_cuda(x, seed, *, kappa, M, n_steps, n_overrelax, n_heatbath,
     err = _cuda.load_library().mlmc_rotor_sweep(
         x.data_ptr(), out.data_ptr(),
         wsum.data_ptr() if wsum is not None else None, C, M, n_steps,
-        n_overrelax, n_heatbath, k_rej, float(kappa), seed1, seed2, cpb,
-        words, smem, _cuda.stream_ptr(x.device))
+        n_overrelax, n_heatbath, k_rej, float(kappa), seed1, seed2, chain0,
+        cpb, words, smem, _cuda.stream_ptr(x.device))
     _cuda.check_status(err, "rotor_sweep kernel launch")
     SWEEP.launches += 1
     return out, wsum
 
 
 def rotor_sweep_chain(x, seed, *, kappa, M, n_steps, n_overrelax=1,
-                      n_heatbath=1, k_rej=8):
+                      n_heatbath=1, k_rej=8, chain0=0):
     """``n_steps`` fused rotor draws in one launch.  x: [C, M] path angles
-    (M even); seed: int32 scalar or pair.  Returns (x', wsum[n_steps, C])."""
+    (M even); seed: int32 scalar or pair; chain0: the global index of x's
+    first chain.  Returns (x', wsum[n_steps, C])."""
     kw = dict(kappa=kappa, M=M, n_steps=n_steps, n_overrelax=n_overrelax,
-              n_heatbath=n_heatbath, k_rej=k_rej)
+              n_heatbath=n_heatbath, k_rej=k_rej, chain0=chain0)
     if _cuda.dispatch_device(x) == "cpu":
         return rotor_sweep_chain_plain(x, seed, **kw)
     return _sweep_cuda(x, seed, want_w=True, **kw)
 
 
 def rotor_sweep(x, seed, *, kappa, M, n_overrelax=1, n_heatbath=1, k_rej=8,
-                step_offset=0):
+                step_offset=0, chain0=0):
     """One fused draw: the chain at n_steps = 1.  ``step_offset`` is
     accepted and ignored, as in the JAX package."""
     del step_offset
     kw = dict(kappa=kappa, M=M, n_steps=1, n_overrelax=n_overrelax,
-              n_heatbath=n_heatbath, k_rej=k_rej)
+              n_heatbath=n_heatbath, k_rej=k_rej, chain0=chain0)
     if _cuda.dispatch_device(x) == "cpu":
         return rotor_sweep_chain_plain(x, seed, **kw)[0]
     return _sweep_cuda(x, seed, want_w=False, **kw)[0]
@@ -237,14 +238,15 @@ def _cluster_update(x, rng, rows, *, kappa2, M, dtype):
     return torch.where(n_flips % 2 == 1, _mod_2pi(PI + 2.0 * xbar - x), x)
 
 
-def rotor_cluster_chain_plain(x, seed, *, kappa2, M, n_steps, n_updates=10):
+def rotor_cluster_chain_plain(x, seed, *, kappa2, M, n_steps, n_updates=10,
+                              chain0=0):
     """Plain PyTorch version of the cluster kernel (any device, any float
     dtype): returns (x', wsum[n_steps, C])."""
     CLUSTER.count_plain(x)
     C = x.shape[0]
-    check_element_capacity(M, C)
+    check_element_capacity(M, C, chain0)
     seed1, seed2 = seed_pair(seed)
-    site, chain = element_ids((M,), C, x.device)
+    site, chain = element_ids((M,), C, x.device, chain0)
     ws = []
     for s in range(n_steps):
         for u in range(n_updates):
@@ -280,16 +282,19 @@ def cluster_attrs(M: int, n_chains: int):
     return _cuda.kernel_attrs("mlmc_rotor_cluster_attrs", lanes * cpb, smem)
 
 
-def rotor_cluster_chain(x, seed, *, kappa2, M, n_steps, n_updates=10):
+def rotor_cluster_chain(x, seed, *, kappa2, M, n_steps, n_updates=10,
+                        chain0=0):
     """``n_steps`` fused cluster draws of ``n_updates`` Wolff updates each,
     in one launch.  x: [C, M] path angles; kappa2 = 2 I/a (the S_ell
-    prefactor).  Returns (x', wsum[n_steps, C])."""
+    prefactor); chain0: the global index of x's first chain.  Returns
+    (x', wsum[n_steps, C])."""
     if _cuda.dispatch_device(x) == "cpu":
         return rotor_cluster_chain_plain(x, seed, kappa2=kappa2, M=M,
-                                         n_steps=n_steps, n_updates=n_updates)
+                                         n_steps=n_steps, n_updates=n_updates,
+                                         chain0=chain0)
     C = x.shape[0]
     _cuda.require_cuda("x", x, (C, M))
-    check_element_capacity(M, C)
+    check_element_capacity(M, C, chain0)
     lanes, _, cpb, smem = cluster_launch(M, C)
     _cuda.check_smem(smem, x.device, f"the M={M} rotor path")
     seed1, seed2 = seed_pair(seed)
@@ -297,7 +302,8 @@ def rotor_cluster_chain(x, seed, *, kappa2, M, n_steps, n_updates=10):
     wsum = torch.empty((n_steps, C), dtype=x.dtype, device=x.device)
     err = _cuda.load_library().mlmc_rotor_cluster(
         x.data_ptr(), out.data_ptr(), wsum.data_ptr(), C, M, n_steps,
-        n_updates, float(kappa2), seed1, seed2, lanes, lanes * cpb, smem,
+        n_updates, float(kappa2), seed1, seed2, chain0, lanes, lanes * cpb,
+        smem,
         _cuda.stream_ptr(x.device))
     _cuda.check_status(err, "rotor_cluster kernel launch")
     CLUSTER.launches += 1

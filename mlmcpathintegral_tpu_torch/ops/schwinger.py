@@ -152,16 +152,17 @@ def _plaquettes(T, X):
 
 def schwinger_sweep_chain_plain(theta, seed, *, beta, Mt, Mx, n_steps,
                                 n_overrelax=1, n_heatbath=1, k_rej=6,
-                                with_energy=False, step_offset=0):
+                                with_energy=False, step_offset=0, chain0=0):
     """Plain PyTorch version of the kernel (any device, any float dtype):
-    returns (theta', qsum[n_steps, C], esum[n_steps, C] or None)."""
+    returns (theta', qsum[n_steps, C], esum[n_steps, C] or None).
+    ``chain0``: the global index of theta's first chain, as the kernel's."""
     SWEEP.count_plain(theta)
     C = theta.shape[0]
-    check_element_capacity(Mx * Mt, C)
+    check_element_capacity(Mx * Mt, C, chain0)
     seed1, seed2 = seed_pair(seed)
     g = theta.reshape(C, Mx, Mt, 2)
     T, X = g[..., 0], g[..., 1]
-    site, chain = element_ids((Mx, Mt), C, theta.device)
+    site, chain = element_ids((Mx, Mt), C, theta.device, chain0)
     qs, es = [], []
     for s in range(n_steps):
         rng = CounterRng(seed1, site, chain, seed2, step=step_offset + s)
@@ -244,10 +245,10 @@ def sweep_attrs(Mt: int, Mx: int, n_chains: int):
 
 
 def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
-                n_heatbath, k_rej, with_energy, step_offset, want_q):
+                n_heatbath, k_rej, with_energy, step_offset, want_q, chain0):
     C = theta.shape[0]
     _cuda.require_cuda("theta", theta, (C, 2 * Mx * Mt))
-    check_element_capacity(Mx * Mt, C)
+    check_element_capacity(Mx * Mt, C, chain0)
     lanes, cpb, smem, branch = sweep_launch(
         Mt, Mx, C, _cuda.max_smem_optin(theta.device.index or 0))
     seed1, seed2 = seed_pair(seed)
@@ -264,7 +265,7 @@ def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
         esum.data_ptr() if esum is not None else None,
         work.data_ptr() if work is not None else None,
         C, Mx, Mt, n_steps, step_offset, n_overrelax, n_heatbath, k_rej,
-        float(beta), seed1, seed2, lanes, cpb, smem,
+        float(beta), seed1, seed2, chain0, lanes, cpb, smem,
         _cuda.stream_ptr(theta.device))
     _cuda.check_status(err, "schwinger_sweep kernel launch")
     SWEEP.launches += 1
@@ -272,15 +273,17 @@ def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
 
 
 def schwinger_sweep(theta, seed, *, beta, Mt, Mx, n_overrelax=1,
-                    n_heatbath=1, k_rej=6, step_offset=0):
+                    n_heatbath=1, k_rej=6, step_offset=0, chain0=0):
     """One fused overrelax + heat-bath draw on all chains.
 
     theta: [C, Mx*Mt*2] flat link angles; seed: int32 scalar or pair
     (two words for production-length chains).  ``step_offset`` selects
-    the per-step stream of the chain kernel.  Returns the new theta."""
+    the per-step stream of the chain kernel; ``chain0`` is the global
+    index of theta's first chain (a rank's offset under a chain mesh).
+    Returns the new theta."""
     kw = dict(beta=beta, Mt=Mt, Mx=Mx, n_steps=1, n_overrelax=n_overrelax,
               n_heatbath=n_heatbath, k_rej=k_rej, with_energy=False,
-              step_offset=step_offset)
+              step_offset=step_offset, chain0=chain0)
     if _cuda.dispatch_device(theta) == "cpu":
         return schwinger_sweep_chain_plain(theta, seed, **kw)[0]
     return _sweep_cuda(theta, seed, want_q=False, **kw)[0]
@@ -288,13 +291,14 @@ def schwinger_sweep(theta, seed, *, beta, Mt, Mx, n_overrelax=1,
 
 def schwinger_sweep_chain(theta, seed, *, beta, Mt, Mx, n_steps,
                           n_overrelax=1, n_heatbath=1, k_rej=6,
-                          with_energy=False):
+                          with_energy=False, chain0=0):
     """``n_steps`` consecutive fused draws in one launch, the field
     resident in shared memory.  Returns (theta', qsum[n_steps, C]) or,
-    with ``with_energy``, (theta', qsum, esum[n_steps, C])."""
+    with ``with_energy``, (theta', qsum, esum[n_steps, C]).  ``chain0``:
+    the global index of theta's first chain."""
     kw = dict(beta=beta, Mt=Mt, Mx=Mx, n_steps=n_steps,
               n_overrelax=n_overrelax, n_heatbath=n_heatbath, k_rej=k_rej,
-              with_energy=with_energy, step_offset=0)
+              with_energy=with_energy, step_offset=0, chain0=chain0)
     if _cuda.dispatch_device(theta) == "cpu":
         out, qsum, esum = schwinger_sweep_chain_plain(theta, seed, **kw)
     else:

@@ -403,7 +403,7 @@ def schwinger_twolevel_chain_plain(theta_fine, theta_coarse, s_fine_cache,
                                    s_cond_cache, seed, *, beta, beta_c, Mt,
                                    Mx, n_steps, t_sub=2, n_overrelax_c=1,
                                    n_heatbath_c=1, k_rej=8, k_rej_fill=16,
-                                   k_rej_bessel=48):
+                                   k_rej_bessel=48, chain0=0):
     """Plain PyTorch version of the kernel (any device, any float dtype);
     same signature and outputs as :func:`schwinger_twolevel_chain`."""
     TWOLEVEL.count_plain(theta_fine)
@@ -411,14 +411,14 @@ def schwinger_twolevel_chain_plain(theta_fine, theta_coarse, s_fine_cache,
     dtype = theta_fine.dtype
     C = theta_fine.shape[0]
     Mtc, Mxc = Mt // 2, Mx // 2
-    check_element_capacity(Mxc * Mtc, C)
+    check_element_capacity(Mxc * Mtc, C, chain0)
     seed1, seed2 = seed_pair(seed)
     f = tuple(split_parity(theta_fine.reshape(C, Mx, Mt, 2)))
     gc = theta_coarse.reshape(C, Mxc, Mtc, 2)
     Tc, Xc = gc[..., 0], gc[..., 1]
     S_f = s_fine_cache.to(dtype)
     S_q = s_cond_cache.to(dtype)
-    site, chain = element_ids((Mxc, Mtc), C, theta_fine.device)
+    site, chain = element_ids((Mxc, Mtc), C, theta_fine.device, chain0)
     ys, qcs, ecs, accs = [], [], [], []
     for s in range(n_steps):
         base = s * (t_sub + 1)
@@ -507,7 +507,7 @@ def _device_alphas(beta: float, device: torch.device):
 def _twolevel_cuda(theta_fine, theta_coarse, s_fine_cache, s_cond_cache,
                    seed, *, beta, beta_c, Mt, Mx, n_steps, t_sub,
                    n_overrelax_c, n_heatbath_c, k_rej, k_rej_fill,
-                   k_rej_bessel):
+                   k_rej_bessel, chain0):
     C = theta_fine.shape[0]
     if Mt % 2 or Mx % 2:
         raise ValueError("both-direction coarsening needs even Mt, Mx")
@@ -515,7 +515,7 @@ def _twolevel_cuda(theta_fine, theta_coarse, s_fine_cache, s_cond_cache,
     _cuda.require_cuda("theta_coarse", theta_coarse, (C, Mt * Mx // 2))
     _cuda.require_cuda("s_fine_cache", s_fine_cache, (C,))
     _cuda.require_cuda("s_cond_cache", s_cond_cache, (C,))
-    check_element_capacity((Mx // 2) * (Mt // 2), C)
+    check_element_capacity((Mx // 2) * (Mt // 2), C, chain0)
     lanes, cpb, smem, _ = twolevel_launch(Mt, Mx, C)
     _cuda.check_smem(smem, theta_fine.device,
                      f"the {Mx}x{Mt} two-level fields")
@@ -542,7 +542,8 @@ def _twolevel_cuda(theta_fine, theta_coarse, s_fine_cache, s_cond_cache,
         n_steps, t_sub, n_overrelax_c, n_heatbath_c, k_rej, k_rej_fill,
         k_rej_bessel, int(exact), int(small_beta), float(beta),
         float(beta_c), float(2.0 * log_i0_2beta), float(sigma_beta),
-        float(sigma_beta / math.sqrt(2.0)), seed1, seed2, lanes, cpb, smem,
+        float(sigma_beta / math.sqrt(2.0)), seed1, seed2, chain0, lanes,
+        cpb, smem,
         _cuda.stream_ptr(theta_fine.device))
     _cuda.check_status(err, "schwinger_twolevel kernel launch")
     TWOLEVEL.launches += 1
@@ -553,7 +554,7 @@ def schwinger_twolevel_chain(theta_fine, theta_coarse, s_fine_cache,
                              s_cond_cache, seed, *, beta, beta_c, Mt, Mx,
                              n_steps, t_sub=2, n_overrelax_c=1,
                              n_heatbath_c=1, k_rej=8, k_rej_fill=16,
-                             k_rej_bessel=48):
+                             k_rej_bessel=48, chain0=0):
     """``n_steps`` fused two-level MLMC draws in one launch.
 
     theta_fine: [C, 2*Mt*Mx] fine links; theta_coarse: [C, 2*(Mt/2)*(Mx/2)]
@@ -564,11 +565,12 @@ def schwinger_twolevel_chain(theta_fine, theta_coarse, s_fine_cache,
     runs the exact BesselProduct fill, beta > 8 the Gaussian mixture.
     ``k_rej`` bounds the coarse heat-bath rejection (stay on exhaustion);
     ``k_rej_fill``/``k_rej_bessel`` bound the fill (force-reject on
-    exhaustion)."""
+    exhaustion).  ``chain0``: the global index of the first chain (a
+    rank's offset under a chain mesh), which the counter RNG hashes."""
     kw = dict(beta=beta, beta_c=beta_c, Mt=Mt, Mx=Mx, n_steps=n_steps,
               t_sub=t_sub, n_overrelax_c=n_overrelax_c,
               n_heatbath_c=n_heatbath_c, k_rej=k_rej, k_rej_fill=k_rej_fill,
-              k_rej_bessel=k_rej_bessel)
+              k_rej_bessel=k_rej_bessel, chain0=chain0)
     if _cuda.dispatch_device(theta_fine) == "cpu":
         return schwinger_twolevel_chain_plain(
             theta_fine, theta_coarse, s_fine_cache, s_cond_cache, seed, **kw)

@@ -40,6 +40,12 @@ class Sampler(abc.ABC):
     #: no read from the card per draw
     host_seeded = False
 
+    #: global index of the state's first chain, which a kernel's counter
+    #: RNG hashes (chain0 + local chain): 0 for a state holding every
+    #: chain, a rank's offset when the chains are split over a chain mesh
+    #: (the MC methods set it for their run)
+    chain0 = 0
+
     def __init__(self, action):
         self.action = action
 

@@ -66,7 +66,8 @@ class ClusterSampler(Sampler):
         act = self.action
         x, wsum = rotor_cluster_chain(
             state.x, kernel_seed(generator), kappa2=2.0 * act.m0 / act.a_lat,
-            M=state.x.shape[-1], n_steps=n_steps, n_updates=self.n_updates)
+            M=state.x.shape[-1], n_steps=n_steps, n_updates=self.n_updates,
+            chain0=self.chain0)
         return ClusterState(x=x), wsum
 
     # -- one cluster update (clustersampler.cc:92-132) -------------------------

@@ -121,7 +121,8 @@ class OverrelaxedHeatBathSampler(Sampler):
             from mlmcpathintegral_tpu_torch.ops import gff, rotor, schwinger
             sweep = {"rotor": rotor.rotor_sweep, "gff": gff.gff_sweep,
                      "schwinger": schwinger.schwinger_sweep}[self._kind]
-            x = sweep(x, kernel_seed(generator), **self._kernel_kw())
+            x = sweep(x, kernel_seed(generator), chain0=self.chain0,
+                      **self._kernel_kw())
         elif self._action_sweeps:
             combined = getattr(self.action, "combined_sweeps", None)
             if combined is not None:
@@ -154,7 +155,7 @@ class OverrelaxedHeatBathSampler(Sampler):
             chain = (rotor.rotor_sweep_chain if self._kind == "rotor"
                      else schwinger.schwinger_sweep_chain)
             x, trace = chain(x, kernel_seed(generator), n_steps=n_steps,
-                             **self._kernel_kw())
+                             chain0=self.chain0, **self._kernel_kw())
             return HeatBathState(x=x), trace
         qs = []
         for _ in range(n_steps):

@@ -34,6 +34,11 @@ def mod_2pi(x):
     return x - TWO_PI * torch.floor(0.5 * (x + math.pi) / math.pi)
 
 
+def mod_pi(x):
+    """Map x to the interval [-pi/2, pi/2) (periodic wrap)."""
+    return x - math.pi * torch.floor((x + 0.5 * math.pi) / math.pi)
+
+
 def i0_scaled(z):
     """exp(-|z|) * I0(z) — scaled modified Bessel function."""
     return torch.special.i0e(z)
@@ -64,6 +69,12 @@ def fast_i0_scaled(z):
         series = series * zi + a_k
     large = series / torch.sqrt(TWO_PI * torch.clamp(z, min=_FASTBESSEL_ZLO))
     return torch.where(z < _FASTBESSEL_ZLO, torch.special.i0e(z), large)
+
+
+def log_2pi_i0_scaled(z):
+    """log(2 pi e^{-z} I0(z)) — the log-normalisation used by the ExpSin2
+    distribution family."""
+    return math.log(TWO_PI) + torch.log(fast_i0_scaled(z))
 
 
 def log_i0(z):

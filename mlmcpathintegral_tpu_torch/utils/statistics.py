@@ -63,7 +63,10 @@ def record_block(state: StatsState, Qs: torch.Tensor,
     samples."""
     T = Qs.shape[0]
     dtype = state.avg.dtype
-    Qb = Qs.to(dtype).T                               # [C, T]
+    # [C, T] with each chain's samples contiguous: a chain's sums then
+    # reduce one row the same way whatever the number of chains, so a
+    # rank's block of a chain-split run keeps the one-process bits
+    Qb = Qs.to(dtype).T.contiguous()
     k_max = state.ring.shape[1]
     if n_valid is None:
         v = T
@@ -138,6 +141,18 @@ def tau_int_device(state: StatsState) -> torch.Tensor:
                           / torch.where(good, C_k[0], torch.ones_like(n)),
                           min=1.0),
         torch.ones_like(n))
+
+
+def gather(state, mesh, axis_name: str = "chains"):
+    """The accumulators of a chain-sharded run over the global chain axis
+    (every rank's block, in rank order), for the getters, which then see
+    every chain: the gathered state equals the one-process state bit for
+    bit, and so does every number computed from it.  ``mesh`` None: the
+    state itself."""
+    if mesh is None:
+        return state
+    from mlmcpathintegral_tpu_torch.parallel.chains import gather_chains
+    return gather_chains(mesh, state, axis_name)
 
 
 def soft_reset(state: StatsState) -> StatsState:

@@ -125,11 +125,15 @@ def boundary(_cuda, gff, probe, dev, reps):
                     lanes, cpb = min(1024, _cuda.next_pow2(n // 2)), 1
                 smem = 4 * cpb * n
 
+                # a tree whose kernels take a chain offset gets chain0 = 0
+                chain0 = (0,) if len(lib.mlmc_gff_sweep.argtypes) == 17 \
+                    else ()
+
                 def launch():
                     err = lib.mlmc_gff_sweep(
                         x.data_ptr(), y.data_ptr(), C, M, M, 1, 1, kappa,
-                        gff._sigma(kappa), 3, 4, lanes, cpb, code, smem,
-                        _cuda.stream_ptr(dev))
+                        gff._sigma(kappa), 3, 4, *chain0, lanes, cpb, code,
+                        smem, _cuda.stream_ptr(dev))
                     _cuda.check_status(err, "gff_sweep")
                 launch()
                 torch.cuda.synchronize()
