@@ -176,8 +176,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (``ref_qft_schwinger_heatbath.in``: single-level heat
                bath, 8x8, beta = 4, 200 000 samples) as is and with
                its heat bath on K3, both at 4 sigma from chit_exact
-               (the plain run's burn-in cut 10 000 -> 1 000 draws; cuts
-               of F1 10 000 -> 2 000, F2 1 000 -> 256 and F3 500 -> 256
+               (the plain run's burn-in cut 10 000 -> 256 draws; cuts
+               of F1 10 000 -> 1 000, F2 1 000 -> 256 and F3 500 -> 256
                draws keep the script within its limit);
  17. chain0  - every kernel's global chain offset at its path's launch
                (K3 and K4 at the main path's, K6 at path C's, 16 steps,
@@ -204,14 +204,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
  20. spatial - the halo-exchange sweeps of ``parallel/spatial.py`` at one
                rank (GFF 256x256 and Schwinger 64x64, 64 chains each)
                equal their dense sweeps bit for bit, each timed beside
-               the dense one.
+               the dense one;
+ 21. scale   - the paper's Schwinger scale study (``tools/
+               schwinger_scale_study``, beta = 4 (M/16)^2, three levels):
+               K4's block branch against its plain version at the 32x32
+               and 64x64 fine launches (256 chains, 16 steps, t_sub = 4,
+               the rows' beta and nonperturbative beta_c) under phase 4's
+               departures gates and >= SHARE_MIN on y, accept, S_fine,
+               S_cond and the field (y within TOL M/8: the f32 rounding of
+               its charge sum over M^2 plaquettes), and K3's block branch
+               at 16x16 and 32x32 (the 64x64 and 128x128 rows' coarsest
+               launches at their beta): overrelax-only within 1e-5 and
+               the heat-bath share after 4 draws as in phase 3, each
+               launch's layout, sha256 and device ms beside its bound;
+               then the 16x16 and 32x32 rows through the tool's
+               ``run_mlmc`` at 1024 chains with their sample counts cut
+               (``SCALE_RUNS``), each within 4 sigma of chit_exact, K3
+               and K4 launched, no plain-version call on CUDA; and the
+               sequential two-level screen: the harmonic oscillator with
+               exact coarse draws and the Gaussian fill forced through
+               it, 1024 chains, within 4 sigma of Xsquared_analytical.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; each kernel of a path must have launched in it.  The
 kernels line gives, per kernel, its launches on its path (K3 and K4 on
 phase 5's, K7 on path A, K8 on path B2, K5 on path D, K6 on path C, K9
 on path E; the two probe kernels, P1 and rng_fill's step-less mode P2,
-are on no path and launch 0 times there), ``chain0`` where phase 17
+are on no path and launch 0 times there; K3 and K4 also with their
+launches on phase 21's 16x16 row and their block branches' times),
+``chain0`` where phase 17
 checked the kernel's chain offset, the
 measured ms of a launch at
 its path's shape beside the plain version's and the bound (the least time
@@ -551,7 +572,7 @@ QM_RUNS = (
      "baselines/configs/ref_qm_harmonic_hmc.in",
      {("singlelevelmc", "sampler"): "hierarchical",
       ("hmc", "use_pallas"): True}, ("hmc_trajectory",),
-     {("singlelevelmc", "n_burnin"): 2000}),
+     {("singlelevelmc", "n_burnin"): 1000}),
     ("2_rotor_hierarchical_heatbath", "qm",
      "baselines/configs/ref_qm_rotor_cluster.in",
      {("singlelevelmc", "sampler"): "hierarchical",
@@ -597,7 +618,7 @@ QM_RUNS = (
     # its heat bath on K3
     ("13_schwinger_singlelevel_heatbath", "qft",
      "baselines/configs/ref_qft_schwinger_heatbath.in", {}, (),
-     {("singlelevelmc", "n_burnin"): 1000}),
+     {("singlelevelmc", "n_burnin"): 256}),
     ("13_schwinger_singlelevel_heatbath_K3", "qft",
      "baselines/configs/ref_qft_schwinger_heatbath.in",
      {("heatbath", "use_pallas"): True}, ("schwinger_sweep_chain",), {}),
@@ -1068,6 +1089,230 @@ def two_rank_main_path(root, n_chains, seed, timeout_s=600.0):
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(2)]
     return ranks, wall
+
+
+#: phase 21: K4's block branch at the scale study's 32x32 and 64x64 fine
+#: launches and K3's at its 16x16 and 32x32 coarsest ones (chains, steps
+#: and t_sub of the check); the cut scale-study rows run through the port's
+#: tool (size, samples a level); the sequential screen's chains and samples
+SCALE_K4 = ((32, 256, 16, 4), (64, 256, 16, 4))
+SCALE_K3 = ((16, 64), (32, 128))
+SCALE_RUNS = ((16, 524_288), (32, 262_144))
+SEQ_CHAINS, SEQ_SAMPLES = 1024, 65_536
+
+
+def scale_betas(M):
+    """(beta, beta_c of level 1, beta of the coarsest level) of the scale
+    study's M x M row: beta = 4 (M/16)^2, three levels, nonperturbative
+    matching."""
+    from mlmcpathintegral_tpu_torch.lattice2d import (
+        CoarseningType, Lattice2D,
+    )
+    from mlmcpathintegral_tpu_torch.models.base import RenormalisationType
+    from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
+        QuenchedSchwingerAction,
+    )
+    from mlmcpathintegral_tpu_torch.tools.schwinger_scale_study import (
+        scale_beta,
+    )
+    act = QuenchedSchwingerAction(
+        Lattice2D(M, M, CoarseningType.BOTH), beta=scale_beta(M),
+        renormalisation=RenormalisationType.NONPERTURBATIVE)
+    c1 = act.coarse_action()
+    return act.beta, c1.beta, c1.coarse_action().beta
+
+
+def k4_block_check(dev, M, C, n_steps, t_sub):
+    """K4 against its plain version at the scale study's M x M fine launch
+    (beta = 4 (M/16)^2 and its nonperturbative beta_c; the block branch):
+    C chains from a heat-bath coarse field filled by the conditioned
+    action, n_steps steps at t_sub; phase 4's departures gates on the
+    per-step y, accept, qc and ec, and >= SHARE_MIN of the chains on y,
+    accept, S_fine, S_cond and the fine field at the end, each within TOL
+    but y within TOL M/8 (the f32 rounding of its charge sum over M^2
+    plaquettes against phase 4's 64).  Returns (the check's fields,
+    ok)."""
+    from mlmcpathintegral_tpu_torch.conditioned.schwinger import (
+        QuenchedSchwingerConditionedFineAction,
+    )
+    from mlmcpathintegral_tpu_torch.lattice2d import (
+        CoarseningType, Lattice2D,
+    )
+    from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
+        QuenchedSchwingerAction,
+    )
+    from mlmcpathintegral_tpu_torch.ops import schwinger_twolevel as tl
+    from mlmcpathintegral_tpu_torch.perf_probe import cuda_ms
+    from mlmcpathintegral_tpu_torch.samplers import (
+        OverrelaxedHeatBathSampler,
+    )
+    beta, beta_c, _ = scale_betas(M)
+    gen = torch.Generator(device=dev).manual_seed(M)
+    act = QuenchedSchwingerAction(Lattice2D(M, M, CoarseningType.BOTH),
+                                  beta=beta)
+    cact = QuenchedSchwingerAction(
+        Lattice2D(M // 2, M // 2, CoarseningType.BOTH), beta=beta_c)
+    xc = OverrelaxedHeatBathSampler(cact, n_burnin=50, use_pallas=True) \
+        .prepare(torch.Generator().manual_seed(M), C, torch.float32, dev).x
+    cond = QuenchedSchwingerConditionedFineAction(act)
+    xf = cond.fill_fine_points(gen, act.prolongate(
+        xc, act.initialise_state(gen, C, torch.float32, dev)))
+    args = (xf, xc, act.evaluate(xf), cond.evaluate(xf))
+    kw = dict(beta=beta, beta_c=beta_c, Mt=M, Mx=M, n_steps=n_steps,
+              t_sub=t_sub)
+    k = tl.schwinger_twolevel_chain(*args, (M, 21), **kw)
+    p, rounds, plain_ms = tallied(
+        lambda: tl.schwinger_twolevel_chain_plain(*args, (M, 21), **kw))
+    torch.cuda.synchronize()
+    # y = (Q_f^2 - Q_c^2) / 4 pi^2 with Q_f an f32 sum over M^2
+    # plaquettes: its rounding grows as the square root of their number,
+    # so y is held to phase 4's TOL at its 8x8 field scaled by M/8
+    tol_y = TOL * M / 8
+    dqc = rel_diff(k[5], p[5]).reshape(n_steps, t_sub, -1).amax(dim=1)
+    dec = rel_diff(k[6], p[6]).reshape(n_steps, t_sub, -1).amax(dim=1)
+    agree = (rel_diff(k[4], p[4]) <= tol_y) & (k[7] == p[7]) \
+        & (dqc <= TOL) & (dec <= TOL)
+    rep, ok = departures(agree, (k[4] - p[4]).abs().double())
+    shares = {nm: trace_share(k[i], p[i], tol)
+              for nm, i, tol in (("y", 4, tol_y), ("acc", 7, TOL),
+                                 ("S_fine", 2, TOL), ("S_cond", 3, TOL))}
+    same_acc = (k[7] == p[7]).all(dim=0)
+    rep["y_max_abs_err_same_accepts"] = float(
+        (k[4] - p[4]).abs()[:, same_acc].max()) if same_acc.any() else None
+    shares["theta_fine"] = angle_share(k[0], p[0], TOL)
+    ms = cuda_ms(lambda: tl.schwinger_twolevel_chain(*args, (M, 21), **kw),
+                 3)
+    bound = bound_ms_row(*work_k4(C, M, M, n_steps, t_sub,
+                                  rounds["expcos"],
+                                  rounds.get("bessel", 0.0)))
+    res = {"shape": f"{M}x{M}, beta={beta}, beta_c={beta_c}, {C} chains, "
+                    f"n_steps={n_steps}, t_sub={t_sub}",
+           "departures": rep, "tol_y": tol_y, "share_within_tol": shares,
+           "accept_rate": float(k[7].mean()),
+           "accept_rate_plain": float(p[7].mean()),
+           "sha256": sha256_of(k), "ms": ms, "plain_ms": plain_ms,
+           "rejection_rounds": rounds, **bound,
+           "layout": launch_layout(tl.twolevel_launch(M, M, C),
+                                   tl.twolevel_attrs(M, M, C))}
+    return res, ok and min(shares.values()) >= SHARE_MIN
+
+
+def k3_block_check(dev, M, C, links):
+    """K3 against its plain version at M x M, the coarsest launch of the
+    scale study's 4M x 4M row (its coarsest beta; the block branch):
+    overrelax-only within 1e-5 after 4 draws, and after 4 heat-bath draws
+    >= SHARE_MIN of the chains within 1e-4 (mod 2 pi); the launch timed
+    beside its bound.  Returns (the check's fields, ok)."""
+    from mlmcpathintegral_tpu_torch.ops import _cuda, schwinger
+    from mlmcpathintegral_tpu_torch.perf_probe import cuda_ms
+    beta = scale_betas(4 * M)[2]
+    th = links(C, 2 * M * M)
+    kw = dict(beta=beta, Mt=M, Mx=M, n_steps=4, with_energy=True)
+    k = schwinger.schwinger_sweep_chain(th, (M, 3), n_heatbath=0, **kw)
+    p = schwinger.schwinger_sweep_chain_plain(th, (M, 3), n_heatbath=0,
+                                              **kw)
+    or_err = float((k[0] - p[0]).abs().max())
+    k = schwinger.schwinger_sweep_chain(th, (M, 4), **kw)
+    p, rounds, plain_ms = tallied(
+        lambda: schwinger.schwinger_sweep_chain_plain(th, (M, 4), **kw))
+    share = angle_share(k[0], p[0], TOL)
+    ms = cuda_ms(lambda: schwinger.schwinger_sweep_chain(th, (M, 4), **kw),
+                 5)
+    res = {"shape": f"{M}x{M}, beta_c={beta}, {C} chains, n_steps=4",
+           "overrelax_max_abs_err": or_err,
+           "heatbath_share_within_1e-4": share, "sha256": sha256_of(k),
+           "ms": ms, "plain_ms": plain_ms, "rejection_rounds": rounds,
+           **bound_ms_row(*work_k3(C, M, M, 4, rounds["expcos"])),
+           "layout": launch_layout(schwinger.sweep_launch(
+               M, M, C, _cuda.max_smem_optin(0)),
+               schwinger.sweep_attrs(M, M, C))}
+    return res, or_err <= 1e-5 and share >= SHARE_MIN
+
+
+def sequential_screen_run(dev, n_chains=SEQ_CHAINS, n_samples=SEQ_SAMPLES):
+    """The sequential two-level screen on the card: the harmonic
+    oscillator (M=32, T=4, m0=mu2=1) two-level with exact coarse draws and
+    the Gaussian fill forced through the sequential screen (a fill
+    claiming to read the fine state).  Returns (fields, |dev| in sigma of
+    the fine <x^2> from Xsquared_analytical)."""
+    from mlmcpathintegral_tpu_torch.conditioned.qm import (
+        GaussianConditionedFineAction,
+    )
+    from mlmcpathintegral_tpu_torch.lattice import Lattice1D
+    from mlmcpathintegral_tpu_torch.mc import MonteCarloTwoLevel
+    from mlmcpathintegral_tpu_torch.models import (
+        HarmonicOscillatorAction, RenormalisationType,
+    )
+    from mlmcpathintegral_tpu_torch.qoi import qoi_x_squared
+    from mlmcpathintegral_tpu_torch.samplers import ExactSampler
+
+    class SequentialGaussian(GaussianConditionedFineAction):
+        independent_fill = False
+
+    act = HarmonicOscillatorAction(Lattice1D(32, 4.0),
+                                   RenormalisationType.NONPERTURBATIVE,
+                                   m0=1.0, mu2=1.0)
+    mc = MonteCarloTwoLevel(act, qoi_x_squared, ExactSampler,
+                            SequentialGaussian, n_burnin=200,
+                            n_samples=n_samples, chunk_size=64)
+    stats = mc.evaluate_difference(torch.Generator().manual_seed(5),
+                                   n_chains, torch.float32, dev)
+    avg = mc.stats_fine.average(stats["fine"])
+    err = mc.stats_fine.error(stats["fine"])
+    oracle = act.Xsquared_analytical()
+    return ({"fine_x2": avg, "error": err, "oracle": oracle,
+             "p_accept": mc.p_accept, "n_chains": n_chains,
+             "samples": mc.stats_fine.samples(stats["fine"]),
+             "timings_s": mc.timings}, abs(avg - oracle) / err)
+
+
+def scale_phase(dev, links):
+    """Phase 21: K4's and K3's block branches against their plain versions
+    at the scale study's launches, the cut 16x16 and 32x32 three-level
+    rows through the port's scale-study tool (launch counters reset just
+    before each and read just after), and the sequential screen.  Returns
+    (the phase's line, its failures, the K4 and K3 checks, the launches of
+    the 16x16 row)."""
+    from mlmcpathintegral_tpu_torch import ops
+    from mlmcpathintegral_tpu_torch.tools.schwinger_scale_study import (
+        run_mlmc, scale_beta,
+    )
+    failures, out = [], {}
+    k4 = {}
+    for M, C, n_steps, t_sub in SCALE_K4:
+        k4[f"{M}x{M}"], ok = k4_block_check(dev, M, C, n_steps, t_sub)
+        if not ok:
+            failures.append(f"K4 block branch at {M}x{M}")
+    k3 = {}
+    for M, C in SCALE_K3:
+        k3[f"{M}x{M}"], ok = k3_block_check(dev, M, C, links)
+        if not ok:
+            failures.append(f"K3 block branch at {M}x{M}")
+    torch.cuda.empty_cache()
+    rows, row_launches = {}, {}
+    for M, n in SCALE_RUNS:
+        ops.reset_counters()
+        r = run_mlmc(M, M, beta=scale_beta(M), n_level=3, n_samples=n,
+                     n_chains=1024, device=dev)
+        torch.cuda.synchronize()
+        launches = {c.name: c.launches for c in ops.counters()}
+        plain = {c.name: c.plain_cuda_calls for c in ops.counters()}
+        r.update(launches=launches, plain_calls_on_cuda=plain,
+                 cut=f"n_samples 1 000 000 -> {n} a level")
+        rows[f"{M}x{M}"], row_launches[M] = r, launches
+        if abs(r["chit"] - r["oracle"]) > 4.0 * r["err"]:
+            failures.append(f"scale row {M}x{M} beyond 4 sigma")
+        if launches[ops.SWEEP.name] == 0 or launches[ops.TWOLEVEL.name] == 0 \
+                or any(plain.values()):
+            failures.append(f"scale row {M}x{M} missed a kernel or ran a "
+                            f"plain version on CUDA")
+    seq, seq_dev = sequential_screen_run(dev)
+    seq["sigma_dev"] = seq_dev
+    if not seq_dev <= 4.0:
+        failures.append("sequential screen beyond 4 sigma")
+    out = {"phase": "scale", "k4_block": k4, "k3_block": k3,
+           "scale_rows": rows, "sequential_screen": seq}
+    return out, failures, k4, k3, row_launches[SCALE_RUNS[0][0]]
 
 
 def main() -> int:
@@ -2262,6 +2507,13 @@ def main() -> int:
     del phi, xi, noise, theta
     torch.cuda.empty_cache()
 
+    # ---- 21. the scale study's launches and cut rows --------------------
+    r21, failed21, k4_block, k3_block, scale_launches = scale_phase(dev,
+                                                                    links)
+    emit(r21)
+    if failed21:
+        fail("phase 21: " + "; ".join(failed21))
+
     # ---- the kernel table and the result line ---------------------------
     # every kernel with its launches on its own path: K3 and K4 on the
     # heat-bath main path (phase 5), K7 on path A (phase 9), K8 on path B2
@@ -2302,6 +2554,15 @@ def main() -> int:
     rows[0]["launches_run_12"] = qm_rows["12_schwinger_temporal_twolevel"][
         "launches"][ops.SWEEP.name]
     rows[4]["launches_path_C"] = rep_c["launches"][hmc.HMC.name]
+    # phase 21: the block branches' launches and the 16x16 scale row's
+    for i, name, checks in ((0, ops.SWEEP.name, k3_block),
+                            (1, ops.TWOLEVEL.name, k4_block)):
+        rows[i]["launches_scale_16x16"] = scale_launches[name]
+        rows[i]["block_branch"] = {
+            shape: {key: c[key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "sha256", "layout")}
+            for shape, c in checks.items()}
     device_functions = [{
         "name": "CounterRng", "route": "cuda", "source": ops.RNG_FILL.source,
         "replaces": ops.RNG_FILL.replaces,

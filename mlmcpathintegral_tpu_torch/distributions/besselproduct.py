@@ -79,10 +79,17 @@ class BesselProductDistribution:
         return -log_s
 
     def log_evaluate(self, x, x_p, x_m):
-        """log p(x | x_p, x_m) with the exact series normalisation."""
+        """log p(x | x_p, x_m) with the exact series normalisation;
+        ``x_p``, ``x_m``: tensors or numbers, broadcast with ``x``."""
+        x_p = torch.as_tensor(x_p, dtype=x.dtype, device=x.device)
+        x_m = torch.as_tensor(x_m, dtype=x.dtype, device=x.device)
         lp = log_i0(2.0 * self.beta * torch.cos(0.5 * (x - x_p)))
         lm = log_i0(2.0 * self.beta * torch.cos(0.5 * (x - x_m)))
         return self.log_Znorm_inv(x_p - x_m, rescaled=False) + lp + lm
+
+    def evaluate(self, x, x_p, x_m):
+        """p(x | x_p, x_m), elementwise."""
+        return torch.exp(self.log_evaluate(x, x_p, x_m))
 
     # -- sampling --------------------------------------------------------------
 

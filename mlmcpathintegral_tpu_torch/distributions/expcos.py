@@ -62,9 +62,17 @@ class ExpCosDistribution:
         return out
 
     @staticmethod
+    def evaluate(x, beta, x_p, x_m):
+        """p(x | x_p, x_m), elementwise."""
+        return torch.exp(ExpCosDistribution.log_evaluate(x, beta, x_p, x_m))
+
+    @staticmethod
     def log_evaluate(x, beta, x_p, x_m):
         """log p(x | x_p, x_m), stable for large beta:
-        log Z = log(2 pi I0e(sigma)) + sigma, sigma = 2 beta |cos(dx/2)|."""
+        log Z = log(2 pi I0e(sigma)) + sigma, sigma = 2 beta |cos(dx/2)|.
+        ``x_p``, ``x_m``: tensors or numbers, broadcast with ``x``."""
+        x_p = torch.as_tensor(x_p, dtype=x.dtype, device=x.device)
+        x_m = torch.as_tensor(x_m, dtype=x.dtype, device=x.device)
         sigma = 2.0 * beta * torch.abs(torch.cos(0.5 * (x_p - x_m)))
         s = beta * (torch.cos(x - x_p) + torch.cos(x - x_m))
         log_Z = math.log(TWO_PI) + torch.log(fast_i0_scaled(sigma)) + sigma

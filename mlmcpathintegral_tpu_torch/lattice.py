@@ -1,5 +1,6 @@
-"""1-D lattice metadata (a copy of ``mlmcpathintegral_tpu/lattice.py``'s
-``Lattice1D`` so that the PyTorch package stands alone).
+"""1-D lattice metadata and the 2-D coarsening modes (a copy of
+``mlmcpathintegral_tpu/lattice.py``'s ``Lattice1D`` and ``CoarsenType`` so
+that the PyTorch package stands alone).
 
 Reference parity: src/lattice/lattice1d.{hh,cc}: M_lat sites on
 [0, T_final], a = T/M, periodic; coarse_lattice halves M
@@ -9,6 +10,16 @@ Reference parity: src/lattice/lattice1d.{hh,cc}: M_lat sites on
 from __future__ import annotations
 
 from dataclasses import dataclass
+from enum import Enum
+
+
+class CoarsenType(Enum):
+    """2-D coarsening modes (lattice2d.hh:18-26)."""
+    BOTH = "both"            # halve both directions
+    TEMPORAL = "temporal"    # halve temporal direction only
+    SPATIAL = "spatial"      # halve spatial direction only
+    ALTERNATE = "alternate"  # alternate temporal/spatial per level
+    ROTATE = "rotate"        # rotate by 45 degrees, halve site count
 
 
 @dataclass(frozen=True)

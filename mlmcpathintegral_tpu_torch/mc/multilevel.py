@@ -17,7 +17,9 @@ level (``use_pallas=False``, or another coarse sampler such as the hybrid
 cluster sampler) runs unfused: per recorded sample the level's coarse
 sampler draws ceil(2 tau) times (mc/twolevel.py make_coarse_subsampler),
 and a chunk's coarse samples go through the batched screen
-(make_batched_screen).  Each chunk takes a seed pair (int32[2]) drawn from
+(make_batched_screen), or, where the level's fill reads the current fine
+state, the sequential screen, a sample at a time
+(make_sequential_screen).  Each chunk takes a seed pair (int32[2]) drawn from
 the run's ``torch.Generator``: the kernels take it directly, an unfused
 chunk seeds a generator on the chains' device from it.  The host runs the
 adaptive outer loop.  A level whose fused kernel would need more shared
@@ -60,7 +62,7 @@ import torch
 
 from mlmcpathintegral_tpu_torch.mc.twolevel import (
     chunk_generator, make_batched_screen, make_coarse_subsampler,
-    run_generators,
+    make_sequential_screen, run_generators,
 )
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelMetropolisStep
 from mlmcpathintegral_tpu_torch.ops import _cuda
@@ -320,18 +322,21 @@ class MonteCarloMultiLevel:
             if self._fused_level(ell):
                 continue
             step = self.twolevel_steps[ell]
-            if not step.conditioned_fine_action.independent_fill:
-                raise NotImplementedError(
-                    "the sequential screen for fills that read the current "
-                    "fine state is not ported; every ported fill is "
-                    "independent")
-            self._unfused[ell] = self._make_unfused_chunk(
-                make_coarse_subsampler(self.coarse_samplers[ell],
-                                       self.qois[ell + 1],
-                                       clock_view=self._gathered),
-                make_batched_screen(self.actions[ell], self.actions[ell + 1],
-                                    step.conditioned_fine_action,
-                                    self.qois[ell], self.qois[ell + 1]))
+            draw_coarse = make_coarse_subsampler(self.coarse_samplers[ell],
+                                                 self.qois[ell + 1],
+                                                 clock_view=self._gathered)
+            if step.conditioned_fine_action.independent_fill:
+                self._unfused[ell] = self._make_unfused_chunk(
+                    draw_coarse,
+                    make_batched_screen(self.actions[ell],
+                                        self.actions[ell + 1],
+                                        step.conditioned_fine_action,
+                                        self.qois[ell], self.qois[ell + 1]))
+            else:
+                self._unfused[ell] = self._make_sequential_chunk(
+                    make_sequential_screen(step, draw_coarse,
+                                           self.qois[ell],
+                                           self.qois[ell + 1]))
         if not self._fused_coarsest():
             self._unfused[self.n_level - 1] = self._make_unfused_chunk_L(
                 make_coarse_subsampler(self.coarsest_sampler,
@@ -348,6 +353,21 @@ class MonteCarloMultiLevel:
                                                      t_accum)
                 xcs.append(draw_coarse.sampler.x_of(cstate))
             tl, qf, qc, _ = screen(gen, tl, torch.stack(xcs))
+            y = qf - qc
+            st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
+            return (cstate, tl, st_y, st_cs, st_slow, t_accum), \
+                self._ybar(y)
+
+        return chunk
+
+    def _make_sequential_chunk(self, screen):
+        """An unfused level whose fill reads the current fine state: its
+        chunk's samples screened one at a time (``make_sequential_screen``)."""
+        def chunk(seed, carry, n_active):
+            cstate, tl, st_y, st_cs, st_slow, t_accum = carry
+            gen = chunk_generator(seed, tl.theta.device, self._rank)
+            cstate, tl, st_cs, t_accum, qf, qc, _ = screen(
+                gen, cstate, tl, st_cs, t_accum, self.chunk_size)
             y = qf - qc
             st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
             return (cstate, tl, st_y, st_cs, st_slow, t_accum), \

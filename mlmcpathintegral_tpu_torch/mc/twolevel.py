@@ -8,10 +8,12 @@ and ``MonteCarloTwoLevel``, the mean and variance of Y = Q_fine - Q_coarse.
 t = ceil(2 tau_int) coarse draws (capped at t_max), with tau_int read
 from the statistics of the sampler's clock observable once per sample.
 ``make_batched_screen`` screens a whole chunk of coarse samples with the
-two-level Metropolis test: because every fill is conditionally
-independent of the current fine state, the proposals of the chunk are one
-batched tensor program; only the accept/reject chain over [C] scalars
-runs step by step.
+two-level Metropolis test: where the fill is conditionally independent of
+the current fine state (``independent_fill``, every fill of the package),
+the proposals of the chunk are one batched tensor program and only the
+accept/reject chain over [C] scalars runs step by step.  A fill that
+reads the current fine state goes through ``make_sequential_screen``: a
+coarse sample and a two-level step at a time.
 
 ``MonteCarloTwoLevel`` runs a chunk of ``chunk_size`` samples per call:
 on its fused path (harmonic or quartic fine action, HMC coarse sampler,
@@ -211,6 +213,33 @@ def make_batched_screen(fine_action, coarse_action, cond, qoi_fine,
     return screen
 
 
+def make_sequential_screen(step, draw_coarse, qoi_fine, qoi_coarse):
+    """Sequential delayed-acceptance screen, for fills that read the
+    current fine state (``independent_fill`` False), whose proposals cannot
+    be built ahead of the chain.  Returns screen(generator, cstate, tl,
+    st_cs, t_accum, n) -> (cstate, tl, st_cs, t_accum, qf_trace,
+    qc_trace, accept_trace), traces [n, C]: per step one subsampled
+    coarse sample (``draw_coarse``, ``make_coarse_subsampler``), then one
+    two-level step (``step``, a ``TwoLevelMetropolisStep``) on it, the
+    JAX package's scan."""
+    x_of = draw_coarse.sampler.x_of
+
+    def screen(generator, cstate, tl, st_cs, t_accum, n):
+        qf, qc, acc = [], [], []
+        for _ in range(n):
+            cstate, st_cs, t_accum = draw_coarse(generator, cstate, st_cs,
+                                                 t_accum)
+            xc = x_of(cstate)
+            tl, accept = step.draw(generator, tl, xc)
+            qf.append(qoi_fine(tl.theta))
+            qc.append(qoi_coarse(xc))
+            acc.append(accept)
+        return (cstate, tl, st_cs, t_accum, torch.stack(qf),
+                torch.stack(qc), torch.stack(acc))
+
+    return screen
+
+
 class MonteCarloTwoLevel:
 
     def __init__(self, fine_action, qoi_factory, coarse_sampler_factory,
@@ -242,18 +271,20 @@ class MonteCarloTwoLevel:
         self.stats_slow = Statistics("E[coarsesampler]", n_autocorr_window)
         self.t_sub_min = int(t_sub_min)
         self._fused_params = self._fused_qm_spec() if use_pallas else None
-        if not self.conditioned_fine_action.independent_fill:
-            raise NotImplementedError(
-                "the sequential two-level screen for fills that read the "
-                "current fine state is not ported (ROADMAP.md item 9); "
-                "every ported fill is independent")
         self._set_mesh(None, 0)
-        self._chunk = self._make_batched_chunk(
-            make_coarse_subsampler(self.coarse_sampler, self.qoi_coarse,
-                                   clock_view=self._gathered),
-            make_batched_screen(fine_action, self.coarse_action,
-                                self.conditioned_fine_action, self.qoi_fine,
-                                self.qoi_coarse))
+        draw_coarse = make_coarse_subsampler(self.coarse_sampler,
+                                             self.qoi_coarse,
+                                             clock_view=self._gathered)
+        if self.conditioned_fine_action.independent_fill:
+            self._chunk = self._make_batched_chunk(
+                draw_coarse,
+                make_batched_screen(fine_action, self.coarse_action,
+                                    self.conditioned_fine_action,
+                                    self.qoi_fine, self.qoi_coarse))
+        else:
+            self._chunk = self._make_sequential_chunk(
+                make_sequential_screen(self.twolevel_step, draw_coarse,
+                                       self.qoi_fine, self.qoi_coarse))
 
     def _make_batched_chunk(self, draw_coarse, screen):
         """``chunk(seed, carry, n_active) -> (carry, n_acc)``: chunk_size
@@ -286,6 +317,23 @@ class MonteCarloTwoLevel:
                     xs.append(self.coarse_sampler.x_of(cstate))
                 xcs = torch.stack(xs)
             tl, qf, qc, acc = screen(gen, tl, xcs, s_cc_pre)
+            st_f = stats_mod.record_block(st_f, qf, n_valid=n_active)
+            st_c = stats_mod.record_block(st_c, qc, n_valid=n_active)
+            st_d = stats_mod.record_block(st_d, qf - qc, n_valid=n_active)
+            n_acc = torch.sum(acc[:n_active])
+            return (cstate, tl, st_f, st_c, st_d, st_cs, t_accum), n_acc
+
+        return chunk
+
+    def _make_sequential_chunk(self, screen):
+        """``chunk(seed, carry, n_active) -> (carry, n_acc)``: chunk_size
+        steps of the sequential screen (``make_sequential_screen``); the
+        statistics record the leading ``n_active`` samples."""
+        def chunk(seed, carry, n_active):
+            cstate, tl, st_f, st_c, st_d, st_cs, t_accum = carry
+            gen = chunk_generator(seed, tl.theta.device, self._rank)
+            cstate, tl, st_cs, t_accum, qf, qc, acc = screen(
+                gen, cstate, tl, st_cs, t_accum, self.chunk_size)
             st_f = stats_mod.record_block(st_f, qf, n_valid=n_active)
             st_c = stats_mod.record_block(st_c, qc, n_valid=n_active)
             st_d = stats_mod.record_block(st_d, qf - qc, n_valid=n_active)

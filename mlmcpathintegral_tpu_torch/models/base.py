@@ -4,8 +4,9 @@ An action is a plain object whose methods are batched tensor functions:
 states are tensors ``[..., ndof]`` with all leading axes treated as chain
 batch dimensions.  Parameters (beta, ...) are Python floats fixed per
 multigrid level, as the reference instantiates one Action per level via
-``coarse_action()``.  No gradient is needed on the ported path, so there is
-no autograd default for the force.
+``coarse_action()``.  The default force is the autograd gradient of
+``evaluate``, as the JAX package's is ``jax.grad`` of it; the actions with
+a force of their own (the HMC models, the Schwinger action) override it.
 """
 
 from __future__ import annotations
@@ -37,9 +38,20 @@ class Action(abc.ABC):
         """Number of degrees of freedom (action/action.hh sample_size)."""
         return self.lattice.ndof
 
+    @property
+    def evaluation_cost(self) -> int:
+        return self.ndof
+
     @abc.abstractmethod
     def evaluate(self, x: torch.Tensor) -> torch.Tensor:
         """S[x] for batched states: [..., ndof] -> [...]."""
+
+    def force(self, x: torch.Tensor) -> torch.Tensor:
+        """dS/dx, batched.  Default: autograd of evaluate."""
+        with torch.enable_grad():
+            y = x.detach().requires_grad_(True)
+            (grad,) = torch.autograd.grad(torch.sum(self.evaluate(y)), y)
+        return grad
 
     @abc.abstractmethod
     def coarse_action(self) -> "Action":

@@ -76,6 +76,16 @@ class QuenchedSchwingerAction(Action):
         plaq = self.plaquette_angles(theta)
         return self.beta * torch.sum(1.0 - torch.cos(plaq), dim=(-2, -1))
 
+    def force(self, theta):
+        """dS/dtheta via the plaquette membership pattern
+        (quenchedschwingeraction.cc:69-91); equals the autograd of
+        evaluate."""
+        s = self.beta * torch.sin(self.plaquette_angles(theta))
+        # F_T(i,j) = s(i,j) - s(i,j-1);  F_X(i,j) = s(i-1,j) - s(i,j)
+        F_T = s - torch.roll(s, 1, dims=-2)
+        F_X = torch.roll(s, 1, dims=-1) - s
+        return self._flat(torch.stack([F_T, F_X], dim=-1))
+
     def initialise_state(self, generator, n_chains, dtype, device):
         return uniform(generator, (n_chains, self.ndof), dtype, device,
                        -math.pi, math.pi)

@@ -60,3 +60,19 @@ def qoi_2d_phi_squared(action_or_lattice):
     def evaluate(phi):
         return torch.mean(phi * phi, dim=-1)
     return evaluate
+
+
+def make_qoi(name: str, obj):
+    """Factory by name (the analog of QoIFactory wiring in driver_qm.cc /
+    driver_qft.cc)."""
+    if name == "x_squared":
+        return qoi_x_squared(obj)
+    if name == "susceptibility":
+        return qoi_susceptibility(obj)
+    if name == "2d_susceptibility":
+        return qoi_2d_susceptibility(obj)
+    if name == "avg_plaquette":
+        return qoi_avg_plaquette(obj)
+    if name == "2d_phi_squared":
+        return qoi_2d_phi_squared(obj)
+    raise ValueError(f"unknown QoI '{name}'")

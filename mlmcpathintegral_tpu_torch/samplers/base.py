@@ -11,6 +11,12 @@ import abc
 import torch
 
 
+def default_dtype():
+    """torch's default float dtype (float32 unless the caller set
+    another), the port's counterpart of the JAX package's x64 switch."""
+    return torch.get_default_dtype()
+
+
 def own_generator(sampler, generator: torch.Generator,
                   device) -> torch.Generator:
     """A generator of the sampler's own, seeded once from ``generator``:

@@ -125,6 +125,15 @@ def record(state: StatsState, Q: torch.Tensor) -> StatsState:
     return record_block(state, Q[None])
 
 
+def record_masked(state: StatsState, Q: torch.Tensor, enabled) -> StatsState:
+    """Record one sample per chain only when ``enabled`` (a bool, or a 0-d
+    bool tensor on the state's device): the per-step form of
+    ``record_block``'s ``n_valid`` prefix."""
+    new = record(state, Q)
+    en = torch.as_tensor(enabled, device=state.avg.device)
+    return StatsState(*(torch.where(en, a, b) for a, b in zip(new, state)))
+
+
 def tau_int_device(state: StatsState) -> torch.Tensor:
     """Integrated autocorrelation time as a 0-d tensor on the state's
     device, aggregated over the chain axis like :meth:`Statistics.tau_int`
@@ -143,6 +152,17 @@ def tau_int_device(state: StatsState) -> torch.Tensor:
         torch.ones_like(n))
 
 
+def variance_device(state: StatsState) -> torch.Tensor:
+    """Cross-chain sample variance as a 0-d tensor on the state's device
+    (statistics.cc:30-35)."""
+    avg = torch.mean(state.avg_lt)
+    avg2 = torch.mean(state.S_k[:, 0])
+    n = (state.n_lt * state.ring.shape[0]).to(avg.dtype)
+    return torch.where(state.n_lt >= 2,
+                       n / torch.clamp(n - 1.0, min=1.0) * (avg2 - avg * avg),
+                       torch.zeros_like(avg))
+
+
 def gather(state, mesh, axis_name: str = "chains"):
     """The accumulators of a chain-sharded run over the global chain axis
     (every rank's block, in rank order), for the getters, which then see
@@ -158,6 +178,13 @@ def gather(state, mesh, axis_name: str = "chains"):
 def soft_reset(state: StatsState) -> StatsState:
     return state._replace(n=torch.zeros_like(state.n),
                           avg=torch.zeros_like(state.avg))
+
+
+def hard_reset(state: StatsState) -> StatsState:
+    """Full reset: clears the long-term moments and the autocorrelation
+    window as well (statistics.hh:128-147 ``hard_reset``), unlike
+    :func:`soft_reset`, which keeps them so tau_int survives burn-in."""
+    return StatsState(*(torch.zeros_like(a) for a in state))
 
 
 def device_summary(state: StatsState):
@@ -255,6 +282,10 @@ class Statistics:
     def samples(self, state) -> int:
         _, i = self._scalars(state)
         return int(i[0]) * state.avg.shape[0]
+
+    def local_samples(self, state) -> int:
+        """Samples a chain has recorded since the last reset."""
+        return int(state.n)
 
     def average(self, state) -> float:
         return float(self._scalars(state)[0][0])

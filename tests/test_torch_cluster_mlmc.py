@@ -587,8 +587,16 @@ class _SequentialFill(ConditionedFineAction):
                                   "rotor_nonperturbative"])
 def test_still_unported_configurations_raise(kind):
     if kind == "sequential_fill":
-        with pytest.raises(NotImplementedError, match="sequential screen"):
-            _mlmc("heatbath_unfused", cond=_SequentialFill)
+        # ported since: a fill that reads the fine state gets the
+        # sequential screen instead of the NotImplementedError it raised
+        mc = _mlmc("heatbath_unfused", cond=_SequentialFill)
+        carries, _ = mc.init_carries(torch.Generator().manual_seed(0), 4,
+                                     torch.float64, "cpu")
+        carry, ybar = mc._chunk(0)(torch.tensor([1, 2], dtype=torch.int32),
+                                   carries[0], mc.chunk_size)
+        assert ybar.shape == (mc.chunk_size,)
+        assert bool(torch.isfinite(ybar).all())
+        assert mc.stats_qoi[0].samples(carry[2]) == 4 * mc.chunk_size
     elif kind == "gff_heatbath":
         # the GFF heat bath is ported; its fused sweep, as in JAX, takes
         # the plain GFF only, never the Gibbs-smoothed coarse action

@@ -291,9 +291,13 @@ class _SequentialFill(ConditionedFineAction):
 
 
 def test_sequential_screen_is_not_ported():
+    # ported since: a fill that reads the fine state gets the sequential
+    # screen (tests/test_torch_sequential_screen.py) instead of the
+    # NotImplementedError it raised
     _, ta = _pair("harmonic")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
-        MonteCarloTwoLevel(ta, qoi_x_squared, ExactSampler, _SequentialFill)
+    mc = MonteCarloTwoLevel(ta, qoi_x_squared, ExactSampler, _SequentialFill)
+    assert mc._chunk.__qualname__.startswith(
+        "MonteCarloTwoLevel._make_sequential_chunk")
     if not torch.cuda.is_available():
         # no silent CPU run: without a card the default device raises
         with pytest.raises(RuntimeError, match="no CUDA device"):
