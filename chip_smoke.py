@@ -223,7 +223,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and K4 launched, no plain-version call on CUDA; and the
                sequential two-level screen: the harmonic oscillator with
                exact coarse draws and the Gaussian fill forced through
-               it, 1024 chains, within 4 sigma of Xsquared_analytical.
+               it, 1024 chains, within 4 sigma of Xsquared_analytical;
+ 22. hybrid  - the hybrid cluster draw's mixing sweep on the sweep
+               kernel (K2, one ``schwinger_sweep`` launch a draw): K2
+               against its plain version at the draw's launches on the
+               cluster rows' level-0 coarse lattices (32x32 at the 64x64
+               row's beta_c, 64x64 at the 128x128 row's; 256 chains on
+               links the hybrid sampler rebuilt) under phase 3's gates
+               (overrelax-only within 1e-5, >= SHARE_MIN of the chains
+               within 1e-4 after 4 launches), each timed beside its bound;
+               the 16x16 row of the scale study with hybrid cluster coarse
+               chains through ``run_mlmc`` (1024 chains, 1M samples a
+               level, ``HYBRID_ROW``): within 4 sigma of chit_exact, no
+               flagged
+               level, K7 and K2 launched, no plain version on CUDA; and
+               path A's level-0 coarse samples and batched screen profiled
+               (``scripts/unfused_profile.py``): host and device ms a
+               draw, idle share, host reads a sample.  Phase 9 also
+               requires one K2 launch a hybrid draw (K7's launches less
+               the samplers' K7-only burn-in).
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; each kernel of a path must have launched in it.  The
@@ -231,7 +249,9 @@ kernels line gives, per kernel, its launches on its path (K3 and K4 on
 phase 5's, K7 on path A, K8 on path B2, K5 on path D, K6 on path C, K9
 on path E; the two probe kernels, P1 and rng_fill's step-less mode P2,
 are on no path and launch 0 times there; K3 and K4 also with their
-launches on phase 21's 16x16 row and their block branches' times),
+launches on phase 21's 16x16 row and their block branches' times; K2, the
+same kernel as K3, with its launches on path A and on phase 22's 16x16
+cluster row and its times at the hybrid draw's launches),
 ``chain0`` where phase 17
 checked the kernel's chain offset, the
 measured ms of a launch at
@@ -1229,6 +1249,129 @@ def k3_block_check(dev, M, C, links):
     return res, or_err <= 1e-5 and share >= SHARE_MIN
 
 
+#: phase 22: K2 at the hybrid draw's mixing launches on the cluster rows'
+#: level-0 coarse lattices (coarse M of the row 2M, chains), the 16x16
+#: cluster row (samples a level: the study's 1M, ~35 s on the card) and
+#: path A's profiled samples
+HYBRID_K2 = ((32, 256), (64, 256))
+HYBRID_ROW = (16, 1_000_000)
+HYBRID_PROFILE_SAMPLES = 16
+
+
+def work_k2(C, Mx, Mt, r):
+    """(bytes, operations) of one sweep launch without traces: the hybrid
+    draw's mixing sweep."""
+    n_links = 2 * Mx * Mt
+    return 4 * 2 * C * n_links, C * sweep_ops(n_links, 0, r)
+
+
+def k2_hybrid_check(dev, M, C):
+    """K2 (``schwinger_sweep``, one launch a mixing sweep) against its
+    plain version at the hybrid draw's launch on M x M, the level-0 coarse
+    lattice of the scale study's 2M x 2M cluster row (its nonperturbative
+    beta_c), C chains, on links rebuilt by the hybrid sampler
+    (``_reconstruct`` of its cluster chain's paths): overrelax-only within
+    1e-5 and, after 4 launches at step offsets 0-3, >= SHARE_MIN of the
+    chains within 1e-4 (mod 2 pi), as phase 3; one launch timed with CUDA
+    events beside its bound.  Returns (the check's fields, ok)."""
+    from mlmcpathintegral_tpu_torch.lattice2d import (
+        CoarseningType, Lattice2D,
+    )
+    from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
+        QuenchedSchwingerAction,
+    )
+    from mlmcpathintegral_tpu_torch.ops import _cuda, schwinger
+    from mlmcpathintegral_tpu_torch.perf_probe import cuda_ms
+    from mlmcpathintegral_tpu_torch.samplers import (
+        QuenchedSchwingerClusterSampler,
+    )
+    beta = scale_betas(2 * M)[1]
+    act = QuenchedSchwingerAction(Lattice2D(M, M, CoarseningType.BOTH),
+                                  beta=beta)
+    sampler = QuenchedSchwingerClusterSampler(act, n_burnin=20,
+                                              use_pallas=True)
+    gen = torch.Generator(device=dev).manual_seed(M)
+    th = sampler.prepare(gen, C, torch.float32, dev).x
+    kw = dict(beta=beta, Mt=M, Mx=M)
+    k = schwinger.schwinger_sweep(th, (M, 5), n_heatbath=0, **kw)
+    p = schwinger.schwinger_sweep_chain_plain(th, (M, 5), n_steps=1,
+                                              n_heatbath=0, **kw)[0]
+    or_err = float((k - p).abs().max())
+
+    def four(sweep):
+        x = th
+        for i in range(4):
+            x = sweep(x, (M, 6), step_offset=i, **kw)
+        return x
+
+    k = four(schwinger.schwinger_sweep)
+    p, rounds, plain_ms = tallied(lambda: four(
+        lambda x, seed, **a: schwinger.schwinger_sweep_chain_plain(
+            x, seed, n_steps=1, **a)[0]))
+    share = angle_share(k, p, TOL)
+    ms = cuda_ms(lambda: schwinger.schwinger_sweep(th, (M, 6), **kw), 10)
+    res = {"shape": f"{M}x{M}, beta_c={beta}, {C} chains, one sweep",
+           "overrelax_max_abs_err": or_err,
+           "heatbath_share_within_1e-4_after_4": share,
+           "sha256": sha256_of([k]), "ms": ms, "plain_ms": plain_ms / 4,
+           "rejection_rounds": rounds,
+           **bound_ms_row(*work_k2(C, M, M, rounds["expcos"])),
+           "layout": launch_layout(schwinger.sweep_launch(
+               M, M, C, _cuda.max_smem_optin(0)),
+               schwinger.sweep_attrs(M, M, C))}
+    return res, or_err <= 1e-5 and share >= SHARE_MIN
+
+
+def hybrid_phase(dev, root):
+    """Phase 22: K2 against its plain version at the hybrid draw's mixing
+    launches (``k2_hybrid_check``); the 16x16 row of the scale study with
+    hybrid cluster coarse chains through the tool's ``run_mlmc`` (1024
+    chains, ``HYBRID_ROW`` samples a level; launch counters reset just
+    before and read just after): within 4 sigma of chit_exact, no flagged
+    level, K7 and K2 launched, no plain version on CUDA; then path A's
+    level-0 coarse samples and screen profiled
+    (``scripts/unfused_profile.py``): host and device ms a draw, the idle
+    share, host reads a sample.  Returns (the phase's line, its failures,
+    the K2 checks, the row's launches)."""
+    from mlmcpathintegral_tpu_torch import ops
+    from mlmcpathintegral_tpu_torch.ops import rotor
+    from mlmcpathintegral_tpu_torch.tools.schwinger_scale_study import (
+        run_mlmc, scale_beta,
+    )
+    failures = []
+    k2 = {}
+    for M, C in HYBRID_K2:
+        k2[f"{M}x{M}"], ok = k2_hybrid_check(dev, M, C)
+        if not ok:
+            failures.append(f"K2 at the hybrid draw's {M}x{M} launch")
+    torch.cuda.empty_cache()
+    M, n = HYBRID_ROW
+    ops.reset_counters()
+    row = run_mlmc(M, M, beta=scale_beta(M), n_level=3, n_samples=n,
+                   n_chains=1024, coarse="cluster", device=dev)
+    torch.cuda.synchronize()
+    launches = {c.name: c.launches for c in ops.counters()}
+    plain = {c.name: c.plain_cuda_calls for c in ops.counters()}
+    row.update(launches=launches, plain_calls_on_cuda=plain,
+               cut="none" if n == 1_000_000
+               else f"n_samples 1 000 000 -> {n} a level")
+    if abs(row["chit"] - row["oracle"]) > 4.0 * row["err"]:
+        failures.append(f"cluster row {M}x{M} beyond 4 sigma")
+    if row["unreliable_levels"] != "none":
+        failures.append(f"cluster row {M}x{M} flagged a level")
+    if launches[ops.SWEEP.name] == 0 or launches[rotor.CLUSTER.name] == 0 \
+            or any(plain.values()):
+        failures.append(f"cluster row {M}x{M} missed K2 or K7 or ran a "
+                        f"plain version on CUDA")
+    sys.path.insert(0, str(root / "scripts"))
+    import unfused_profile
+    prof = unfused_profile.profile_level0("path_A", dev,
+                                          HYBRID_PROFILE_SAMPLES, 64)
+    out = {"phase": "hybrid", "k2_mix": k2,
+           f"cluster_row_{M}x{M}": row, "path_A_profile": prof}
+    return out, failures, k2, launches
+
+
 def sequential_screen_run(dev, n_chains=SEQ_CHAINS, n_samples=SEQ_SAMPLES):
     """The sequential two-level screen on the card: the harmonic
     oscillator (M=32, T=4, m0=mu2=1) two-level with exact coarse draws and
@@ -1857,6 +2000,15 @@ def main() -> int:
         fail("path A did not launch the cluster kernel")
     if any(plain_A.values()):
         fail("path A ran a plain version on CUDA")
+    # a hybrid draw is one K7 and one K2 launch; the samplers' prepare
+    # burns in with K7 alone
+    burn_A = sum(s.cluster.n_burnin
+                 for s in mca.coarse_samplers + [mca.coarsest_sampler])
+    if launches_A[ops.SWEEP.name] \
+            != launches_A[rotor.CLUSTER.name] - burn_A:
+        fail("path A's hybrid draws did not each launch K2 once: "
+             f"K2 {launches_A[ops.SWEEP.name]}, K7 "
+             f"{launches_A[rotor.CLUSTER.name]}, burn-in {burn_A}")
 
     # ---- 10. K5: HMC trajectory -----------------------------------------
     from mlmcpathintegral_tpu_torch import convert
@@ -2514,6 +2666,12 @@ def main() -> int:
     if failed21:
         fail("phase 21: " + "; ".join(failed21))
 
+    # ---- 22. the hybrid draw's mixing sweep on K2 -----------------------
+    r22, failed22, k2_mix, hybrid_launches = hybrid_phase(dev, root)
+    emit(r22)
+    if failed22:
+        fail("phase 22: " + "; ".join(failed22))
+
     # ---- the kernel table and the result line ---------------------------
     # every kernel with its launches on its own path: K3 and K4 on the
     # heat-bath main path (phase 5), K7 on path A (phase 9), K8 on path B2
@@ -2563,6 +2721,16 @@ def main() -> int:
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "sha256", "layout")}
             for shape, c in checks.items()}
+    # phase 9 and 22: K2's launches as the hybrid draws' mixing sweep on
+    # path A and on the cut 16x16 cluster row, its times at the cluster
+    # rows' level-0 coarse launches
+    rows[0]["launches_path_A"] = launches_A[ops.SWEEP.name]
+    rows[0]["launches_cluster_16x16"] = hybrid_launches[ops.SWEEP.name]
+    rows[0]["hybrid_mix"] = {
+        shape: {key: c[key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "sha256",
+            "layout")}
+        for shape, c in k2_mix.items()}
     device_functions = [{
         "name": "CounterRng", "route": "cuda", "source": ops.RNG_FILL.source,
         "replaces": ops.RNG_FILL.replaces,

@@ -21,7 +21,9 @@ and a chunk's coarse samples go through the batched screen
 state, the sequential screen, a sample at a time
 (make_sequential_screen).  Each chunk takes a seed pair (int32[2]) drawn from
 the run's ``torch.Generator``: the kernels take it directly, an unfused
-chunk seeds a generator on the chains' device from it.  The host runs the
+chunk seeds a generator on the chains' device from it, whose kernel seeds
+come from a CPU twin on the card (mc/twolevel.py ``chunk_generator``), so
+a launch of the chunk waits on no read from the card.  The host runs the
 adaptive outer loop.  A level whose fused kernel would need more shared
 memory per block than the card lets one block opt in to runs unfused with
 its factory's coarse sampler, as the JAX package does with fields beyond
@@ -61,7 +63,7 @@ import numpy as np
 import torch
 
 from mlmcpathintegral_tpu_torch.mc.twolevel import (
-    chunk_generator, make_batched_screen, make_coarse_subsampler,
+    chunk_generator, fill_row, make_batched_screen, make_coarse_subsampler,
     make_sequential_screen, run_generators,
 )
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelMetropolisStep
@@ -347,12 +349,13 @@ class MonteCarloMultiLevel:
         def chunk(seed, carry, n_active):
             cstate, tl, st_y, st_cs, st_slow, t_accum = carry
             gen = chunk_generator(seed, tl.theta.device, self._rank)
-            xcs = []
-            for _ in range(self.chunk_size):
+            xcs = None
+            for i in range(self.chunk_size):
                 cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
                                                      t_accum)
-                xcs.append(draw_coarse.sampler.x_of(cstate))
-            tl, qf, qc, _ = screen(gen, tl, torch.stack(xcs))
+                xcs = fill_row(xcs, i, self.chunk_size,
+                               draw_coarse.sampler.x_of(cstate))
+            tl, qf, qc, _ = screen(gen, tl, xcs)
             y = qf - qc
             st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
             return (cstate, tl, st_y, st_cs, st_slow, t_accum), \

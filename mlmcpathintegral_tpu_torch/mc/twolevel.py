@@ -22,7 +22,7 @@ else a batched-screen chunk whose coarse samples come from one batched
 draw of an exact sampler or from the subsampler.  Each chunk takes a seed
 pair drawn from the run's ``torch.Generator``: the kernel takes it
 directly, an unfused chunk seeds a generator on the chains' device from
-it.
+it (on the card with a CPU twin for its kernel seeds, ``chunk_generator``).
 
 Chain-parallel runs (``mesh=``, see parallel/chains.py): every rank builds
 the set-up state for all C chains from the same generator, keeps its block
@@ -53,14 +53,33 @@ from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
 from mlmcpathintegral_tpu_torch.utils.timer import sync
 
 
-def chunk_generator(seed, device, rank: int = 0) -> torch.Generator:
+class ChunkGenerator(torch.Generator):
+    """A chunk's generator on the chains' device.  On the card ``host`` is
+    a CPU generator of its own, from which its kernel seeds come
+    (``samplers.base.kernel_seed``), so a launch takes its seed words
+    without waiting for a read from the card; on the CPU it is None and
+    the seeds come from the generator itself."""
+
+    host = None
+
+
+#: mixed into a chunk's seed for its CPU twin on the card
+HOST_SEED_MIX = 0xD1B54A32D192ED03
+
+
+def chunk_generator(seed, device, rank: int = 0) -> ChunkGenerator:
     """A generator on ``device`` seeded from a chunk's seed pair and, on a
     chain mesh, the rank (rank 0 takes the one-process seed), so the
-    ranks' plain noise differs."""
+    ranks' plain noise differs; on the card with a CPU twin for its kernel
+    seeds (``ChunkGenerator``), seeded from the same words."""
     s1, s2 = seed_pair(seed)
     mix = (rank * 0x9E3779B97F4A7C15) & ((1 << 64) - 1)
-    return torch.Generator(device=device).manual_seed(((s1 << 32) | s2)
-                                                      ^ mix)
+    word = ((s1 << 32) | s2) ^ mix
+    gen = ChunkGenerator(device=device)
+    gen.manual_seed(word)
+    if gen.device.type != "cpu":
+        gen.host = torch.Generator().manual_seed(word ^ HOST_SEED_MIX)
+    return gen
 
 
 def run_generators(generator, device):
@@ -79,6 +98,16 @@ def run_generators(generator, device):
     setup_gen.manual_seed(int(torch.randint(2**62, (1,),
                                             generator=generator)))
     return next_seed, setup_gen
+
+
+def fill_row(buf, i: int, n: int, x):
+    """``buf[i] = x`` into a buffer of n rows shaped like x, allocated at
+    the first row: a chunk's coarse samples [n, C, ndof] are held once,
+    where a list of them and its stack would hold them twice."""
+    if buf is None:
+        buf = x.new_empty((n, *x.shape))
+    buf[i] = x
+    return buf
 
 
 def make_coarse_subsampler(coarse_sampler, qoi_coarse, t_max: int = 100,
@@ -108,10 +137,15 @@ def make_coarse_subsampler(coarse_sampler, qoi_coarse, t_max: int = 100,
             t = int(torch.clamp(torch.ceil(
                 2.0 * stats_mod.tau_int_device(view(stats_cs))),
                 max=float(t_max)))
-        for _ in range(t):
+        # the t draws' clock values go in as one block: the closed-form
+        # block record equals t single records, and t is fixed for the
+        # sample before its first draw
+        obs = None
+        for i in range(t):
             cstate, _ = coarse_sampler.draw(generator, cstate)
-            stats_cs = stats_mod.record(
-                stats_cs, clock_obs(coarse_sampler.x_of(cstate)))
+            obs = fill_row(obs, i, t,
+                           clock_obs(coarse_sampler.x_of(cstate)))
+        stats_cs = stats_mod.record_block(stats_cs, obs)
         sum_t, n_indep = t_accum
         return cstate, stats_cs, (sum_t + t, n_indep + 1.0)
 
@@ -310,12 +344,12 @@ class MonteCarloTwoLevel:
                 sum_t, n_indep = t_accum
                 t_accum = (sum_t + float(n), n_indep + float(n))
             else:
-                xs = []
-                for _ in range(n):
+                xcs = None
+                for i in range(n):
                     cstate, st_cs, t_accum = draw_coarse(gen, cstate, st_cs,
                                                          t_accum)
-                    xs.append(self.coarse_sampler.x_of(cstate))
-                xcs = torch.stack(xs)
+                    xcs = fill_row(xcs, i, n,
+                                   self.coarse_sampler.x_of(cstate))
             tl, qf, qc, acc = screen(gen, tl, xcs, s_cc_pre)
             st_f = stats_mod.record_block(st_f, qf, n_valid=n_active)
             st_c = stats_mod.record_block(st_c, qc, n_valid=n_active)

@@ -632,14 +632,14 @@ def host_ms(fn, reps):
 def cluster_breakdown(mc, carries, gen, reps=20):
     """Host ms of the pieces of the hybrid-cluster fine level's chunk: one
     subsampled coarse sample and, within one hybrid draw, the cluster
-    kernel call, the link reconstruction, the two mix sweeps and the path
-    rebuild; then the batched screen of one chunk of coarse samples."""
+    kernel call, the link reconstruction, the mix sweeps (the sweep
+    kernel) and the path rebuild; then the batched screen of one chunk of
+    coarse samples."""
     from mlmcpathintegral_tpu_torch.mc.twolevel import (
         make_batched_screen, make_coarse_subsampler,
     )
     from mlmcpathintegral_tpu_torch.samplers.cluster import ClusterState
     sampler = mc.coarse_samplers[0]
-    act = sampler.action
     cstate, tl, _, st_cs, _, t_accum = carries[0]
     sub = make_coarse_subsampler(sampler, mc.qois[1])
     xcs = []
@@ -658,8 +658,7 @@ def cluster_breakdown(mc, carries, gen, reps=20):
         "cluster_update": lambda: sampler.cluster.draw(
             gen, ClusterState(x=psi)),
         "reconstruct": lambda: sampler._reconstruct(gen, psi),
-        "overrelax_sweep": lambda: act.overrelaxation_sweep(x),
-        "heatbath_sweep": lambda: act.heatbath_sweep(gen, x),
+        "mix_sweeps": lambda: sampler.mix(gen, x),
         "psi_from_links": lambda: sampler._psi_from_links(gen, x),
         "draw": lambda: sampler.draw(gen, cstate)}
     res["draw_pieces_ms"] = {k: host_ms(f, reps) for k, f in pieces.items()}

@@ -32,10 +32,13 @@ def own_generator(sampler, generator: torch.Generator,
 
 
 def kernel_seed(generator: torch.Generator) -> torch.Tensor:
-    """An int32[2] kernel seed pair drawn from ``generator`` (on the
-    generator's device; the kernels take it as two host words)."""
-    return torch.randint(-2**31, 2**31 - 1, (2,), generator=generator,
-                         dtype=torch.int32, device=generator.device)
+    """An int32[2] kernel seed pair (the kernels take it as two host
+    words), drawn from ``generator.host`` where the generator carries one
+    (a chunk's CPU twin, ``mc.twolevel.chunk_generator``: no read from the
+    card), else from ``generator`` on its own device."""
+    source = getattr(generator, "host", None) or generator
+    return torch.randint(-2**31, 2**31 - 1, (2,), generator=source,
+                         dtype=torch.int32, device=source.device)
 
 
 class Sampler(abc.ABC):

@@ -9,9 +9,15 @@ are rebuilt in a fixed gauge (the increments integrated into vertical
 links column by column, the last row closed horizontally), then a random
 gauge transformation and random torus Wilson-line phases restore the link
 measure (quenchedschwingerclustersampler.cc:40-86).  ``n_mix_sweeps``
-overrelaxation + heat-bath sweeps of the action's plain tensor sweeps then
-move the smooth plaquette modes, which near-global clusters barely touch,
-and the rotor path is rebuilt from the mixed links.
+overrelaxation + heat-bath sweeps then move the smooth plaquette modes,
+which near-global clusters barely touch, and the rotor path is rebuilt
+from the mixed links.  With ``use_pallas`` the cluster updates are one
+launch of the cluster kernel (K7) and each mixing sweep one launch of the
+fused sweep kernel (K2, ``ops/schwinger.py`` ``schwinger_sweep``: the
+overrelaxation, then the heat bath truncated at 6 rejection rounds, as
+the JAX package's heat-bath sampler swaps it in for the plain pair); its
+random stream is the kernel's, not the plain sweeps'.  Without it both
+are the plain tensor code.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from mlmcpathintegral_tpu_torch.distributions.rejection import uniform
 from mlmcpathintegral_tpu_torch.lattice import Lattice1D
 from mlmcpathintegral_tpu_torch.models.base import RenormalisationType
 from mlmcpathintegral_tpu_torch.models.rotor import RotorAction
-from mlmcpathintegral_tpu_torch.samplers.base import Sampler
+from mlmcpathintegral_tpu_torch.samplers.base import Sampler, kernel_seed
 from mlmcpathintegral_tpu_torch.samplers.cluster import (
     ClusterSampler, ClusterState,
 )
@@ -56,6 +62,17 @@ class QuenchedSchwingerClusterSampler(Sampler):
                                       n_updates=n_updates,
                                       use_pallas=use_pallas)
         self.n_mix_sweeps = int(n_mix_sweeps)
+        self.use_pallas = bool(use_pallas)
+
+    @property
+    def chain0(self):
+        """The global index of the state's first chain, which the cluster
+        kernel and the sweep kernel hash: the nested cluster sampler's."""
+        return self.cluster.chain0
+
+    @chain0.setter
+    def chain0(self, value):
+        self.cluster.chain0 = int(value)
 
     def init(self, generator, n_chains, dtype, device):
         psi = self.rotor_action.initialise_state(generator, n_chains, dtype,
@@ -79,13 +96,31 @@ class QuenchedSchwingerClusterSampler(Sampler):
         psi = cs.x
         x = self._reconstruct(generator, psi)
         if self.n_mix_sweeps > 0:
-            act = self.action
-            for _ in range(self.n_mix_sweeps):
-                x = act.overrelaxation_sweep(x)
-                x = act.heatbath_sweep(generator, x)
+            x = self.mix(generator, x)
             psi = self._psi_from_links(generator, x)
         accept = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
         return SchwingerClusterState(x=x, psi=psi), accept
+
+    def mix(self, generator, x):
+        """The ``n_mix_sweeps`` overrelaxation + heat-bath sweeps of links
+        x: with ``use_pallas`` one sweep-kernel launch a sweep (one seed
+        pair a draw, the sweeps at step offsets 0, 1, ...), which on the
+        card raises rather than fall back; else the action's plain tensor
+        sweeps."""
+        act = self.action
+        if not self.use_pallas:
+            for _ in range(self.n_mix_sweeps):
+                x = act.overrelaxation_sweep(x)
+                x = act.heatbath_sweep(generator, x)
+            return x
+        from mlmcpathintegral_tpu_torch.ops.schwinger import schwinger_sweep
+        lat = act.lattice
+        seed = kernel_seed(generator)
+        for i in range(self.n_mix_sweeps):
+            x = schwinger_sweep(x, seed, beta=act.beta, Mt=lat.Mt_lat,
+                                Mx=lat.Mx_lat, n_overrelax=1, n_heatbath=1,
+                                k_rej=6, step_offset=i, chain0=self.chain0)
+        return x
 
     # -- rotor path <-> links (quenchedschwingerclustersampler.cc:40-86) -------
 
