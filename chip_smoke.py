@@ -186,8 +186,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                of the two halves, the second with chain0 = C/2, equal the
                whole launch bit for bit, and the plain version with
                chain0 = C/2 passes the kernel's own phase's gates on the
-               second half (K3 and K4: on its first 256 chains); every
-               sha256 phases 3, 4, 6 and 10 printed
+               second half (K3 and K4: on its first 256 chains); the
+               same for K3's and K4's block branches at phase 21's 16x16
+               (2048 chains) and 32x32 (1024 chains) fields, whose halves
+               run larger teams than the whole launch
+               (``block_chain0_halves``, phase 21's gates on 64 chains);
+               every sha256 phases 3, 4, 6 and 10 printed
                equals its recorded value (``BASELINE_SHA256``);
  18. mlmc_two_ranks - phase 5's run on two gloo ranks of the card (512
                chains each, ``mesh=``, ``two_rank_main_path``): its chi,
@@ -216,7 +220,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                at 16x16 and 32x32 (the 64x64 and 128x128 rows' coarsest
                launches at their beta): overrelax-only within 1e-5 and
                the heat-bath share after 4 draws as in phase 3, each
-               launch's layout, sha256 and device ms beside its bound;
+               launch's layout (the block design's threads a chain,
+               chains a block, registers, resident warps), sha256 and
+               device ms beside its bound;
                then the 16x16 and 32x32 rows through the tool's
                ``run_mlmc`` at 1024 chains with their sample counts cut
                (``SCALE_RUNS``), each within 4 sigma of chit_exact, K3
@@ -231,7 +237,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                row's beta_c, 64x64 at the 128x128 row's; 256 chains on
                links the hybrid sampler rebuilt) under phase 3's gates
                (overrelax-only within 1e-5, >= SHARE_MIN of the chains
-               within 1e-4 after 4 launches), each timed beside its bound;
+               within 1e-4 after 4 launches), each timed beside its bound
+               with its layout as in phase 21;
                the 16x16 row of the scale study with hybrid cluster coarse
                chains through ``run_mlmc`` (1024 chains, 1M samples a
                level, ``HYBRID_ROW``): within 4 sigma of chit_exact, no
@@ -253,7 +260,7 @@ launches on phase 21's 16x16 row and their block branches' times; K2, the
 same kernel as K3, with its launches on path A and on phase 22's 16x16
 cluster row and its times at the hybrid draw's launches),
 ``chain0`` where phase 17
-checked the kernel's chain offset, the
+checked the kernel's chain offset (K3 and K4 also ``block_branch_chain0``), the
 measured ms of a launch at
 its path's shape beside the plain version's and the bound (the least time
 the card could take for the launch's work, ``perf_probe.bound_ms``; the
@@ -1023,6 +1030,73 @@ def chain0_halves(run, C):
             continue
         equal &= torch.equal(w, torch.cat([a, b], dim=chain_axis(w, C)))
     return equal, whole, hi
+
+
+#: phase 17's rows of the block branches (their kernels' counters hold
+#: both branches)
+BLOCK_K3 = "schwinger_sweep_chain (block)"
+BLOCK_K4 = "schwinger_twolevel_chain (block)"
+
+
+def block_chain0_halves(dev, links):
+    """Phase 17 on the block branches: K3 at 16x16 (2048 chains, 4 draws,
+    the 64x64 row's coarsest beta) and K4 at 32x32 (1024 chains, 16 steps
+    at t_sub 2, the row's beta), each launch against its two halves (the
+    second with chain0 = C/2; a half takes a larger team than the whole)
+    bit for bit, and the plain version with chain0 = C/2 on the second
+    half's first 64 chains under phase 21's gates.  Returns the two
+    rows."""
+    from mlmcpathintegral_tpu_torch.conditioned.schwinger import (
+        QuenchedSchwingerConditionedFineAction,
+    )
+    from mlmcpathintegral_tpu_torch.lattice2d import (
+        CoarseningType, Lattice2D,
+    )
+    from mlmcpathintegral_tpu_torch.models.qft.schwinger import (
+        QuenchedSchwingerAction,
+    )
+    from mlmcpathintegral_tpu_torch.ops import _cuda, schwinger
+    from mlmcpathintegral_tpu_torch.ops import schwinger_twolevel as tl
+    rows = []
+    C, h = 2048, 1024
+    th = links(C, 2 * 16 * 16)
+    kw = dict(beta=scale_betas(64)[2], Mt=16, Mx=16, n_steps=4,
+              with_energy=True)
+    eq, _, k = chain0_halves(lambda lo, hi, c0: schwinger.
+                             schwinger_sweep_chain(th[lo:hi], (16, 4),
+                                                   chain0=c0, **kw), C)
+    p = schwinger.schwinger_sweep_chain_plain(th[h:h + 64], (16, 4),
+                                              chain0=h, **kw)
+    share = angle_share(k[0][:64], p[0], TOL)
+    rows.append(dict(
+        halves_equal=eq, plain_chain0={"heatbath_share_within_1e-4": share},
+        ok=eq and share >= SHARE_MIN,
+        launch=f"16x16, beta_c={kw['beta']}, {C} chains, n_steps=4",
+        layouts=[schwinger.sweep_launch(16, 16, c, _cuda.max_smem_optin(0))
+                 for c in (C, h)]))
+    C, h, M = 1024, 512, 32
+    beta, beta_c, _ = scale_betas(M)
+    act = QuenchedSchwingerAction(Lattice2D(M, M, CoarseningType.BOTH),
+                                  beta=beta)
+    fine, coarse = links(C, 2 * M * M), links(C, M * M // 2)
+    args = (fine, coarse, act.evaluate(fine),
+            QuenchedSchwingerConditionedFineAction(act).evaluate(fine))
+    kw = dict(beta=beta, beta_c=beta_c, Mt=M, Mx=M, n_steps=16, t_sub=2)
+    eq, _, k = chain0_halves(lambda lo, hi, c0: tl.schwinger_twolevel_chain(
+        *(a[lo:hi].contiguous() for a in args), (M, 21), chain0=c0, **kw), C)
+    k = [t[:64] if i < 4 else t[:, :64] for i, t in enumerate(k)]
+    p = tl.schwinger_twolevel_chain_plain(*(a[h:h + 64] for a in args),
+                                          (M, 21), chain0=h, **kw)
+    dqc = rel_diff(k[5], p[5]).reshape(16, 2, -1).amax(dim=1)
+    dec = rel_diff(k[6], p[6]).reshape(16, 2, -1).amax(dim=1)
+    rep, ok = departures((rel_diff(k[4], p[4]) <= TOL * M / 8)
+                         & (k[7] == p[7]) & (dqc <= TOL) & (dec <= TOL),
+                         (k[4] - p[4]).abs().double())
+    rows.append(dict(halves_equal=eq, plain_chain0=rep, ok=eq and ok,
+                     launch=f"{M}x{M}, beta={beta}, beta_c={beta_c}, {C} "
+                            f"chains, n_steps=16, t_sub=2",
+                     layouts=[tl.twolevel_launch(M, M, c) for c in (C, h)]))
+    return rows
 
 
 def two_rank_rank(rank, world, store, out_dir, n_chains, seed):
@@ -2447,6 +2521,9 @@ def main() -> int:
     r17[tl.TWOLEVEL.name] = dict(halves_equal=eq, plain_chain0=rep,
                                  ok=eq and ok, launch="main path's 8x8, 1024 "
                                  "chains, n_steps=256, t_sub=8")
+    # K3's and K4's block branches at phase 21's fields (the halves launch
+    # smaller chain counts, so other team sizes, than the whole)
+    r17[BLOCK_K3], r17[BLOCK_K4] = block_chain0_halves(dev, links)
     # K6: path C's launch (16 of its 64 steps, with the burn-in traces)
     qkw = dict(QM, a_lat=act.a_lat, nt=100, n_steps=16, t_sub=2,
                with_traces=True)
@@ -2738,9 +2815,12 @@ def main() -> int:
                         if r["name"] not in (hmc.HMC.name, gff.NBSUM.name)],
         "checked_through": ops.RNG_FILL.name,
         "rng_fill_launches": launches[ops.RNG_FILL.name], **rng_row}]
-    # the kernels whose global chain offset phase 17 checked
+    # the kernels whose global chain offset phase 17 checked, on the
+    # block branches too for K3 and K4
     for r in rows:
         r["chain0"] = bool(r17.get(r["name"], {}).get("ok", False))
+    rows[0]["block_branch_chain0"] = r17[BLOCK_K3]["ok"]
+    rows[1]["block_branch_chain0"] = r17[BLOCK_K4]["ok"]
     for r in rows:
         if r["name"] in (hmc.HMC.name, gff.NBSUM.name):
             r["chain0_note"] = "draws no random words: nothing to offset"

@@ -28,15 +28,21 @@
 // butterflies over the lanes that hold the sites, site s on lane s, adding
 // in the order of the block-wide tree so the sums keep its bits.
 //
-// Fields beyond 64 sites take a whole block a chain (one site a thread up
-// to 1024 sites, then several), with __syncthreads() between the groups
-// and the shared-memory tree for Q and E.  A field beyond the shared memory
-// one block may opt in to (227 KB on the H100: a 256x128 lattice's links
-// are 256 KB a chain) keeps its two planes in its slice of a global scratch
-// buffer the wrapper allocates (work != nullptr), updated in place; only
-// the word table and the reduction scratch stay in shared memory.  All
-// three run the same device functions on the same planes, so they compute
-// the same bits.
+// Fields beyond 64 sites take the block design (schwinger_sweep.cuh,
+// sweep_step_team): a chain on a team of G threads, a block a chain, G
+// from the field and the chain count (64 to 512, several chains an SM
+// when the launch has many), __syncthreads() between the groups, each
+// thread's heat-bath links drawing their rounds interleaved (or, one link
+// a thread, pooled across the warp after round 0), and Q and E summed in
+// the order of the earlier one-site-a-thread tree with one barrier
+// (team_sum).  A field beyond shared memory keeps the earlier threads a
+// chain (up to 1024).  A field beyond the shared memory one block may opt
+// in to (227 KB on the H100: a 256x128 lattice's links are 256 KB a
+// chain) keeps its two planes in its slice of a global scratch buffer the
+// wrapper allocates (work != nullptr), updated in place; only the word
+// table and the sums' scratch stay in shared memory.  Every branch gives
+// a link the same arithmetic on the same planes and the sums the same
+// order, so they compute the same bits.
 
 #include <cuda_runtime.h>
 
@@ -78,16 +84,31 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
   }
   float* X = T + nsites;
   float* red = smem + (size_t)a.cpb * slice;
-  // lanes holding the chain's sites for the sums
-  const int P = min(G, pow2_ceil(nsites));
+  // the sums' slots: in the warp design the lanes holding the chain's
+  // sites, in the block design the threads a chain of the one-site-a-
+  // thread tree, whose order it keeps
+  const int P = kWarp ? min(G, pow2_ceil(nsites))
+                      : min(1024, pow2_ceil(nsites));
+  int rb = 0;  // team_sum's buffer
 
   const ChainWords cw =
       chain_words(reinterpret_cast<uint32_t*>(mine), SWEEP_WORDS, a.seed2,
                   a.chain0 + (uint32_t)chain, lt, G);
   const float* src = theta_in + (size_t)chain * 2 * nsites;
-  for (int s = lt; s < nsites; s += G) {
-    T[s] = valid ? src[2 * s] : 0.0f;
-    X[s] = valid ? src[2 * s + 1] : 0.0f;
+  if constexpr (kWarp) {
+    for (int s = lt; s < nsites; s += G) {
+      T[s] = valid ? src[2 * s] : 0.0f;
+      X[s] = valid ? src[2 * s + 1] : 0.0f;
+    }
+  } else {
+    // a site's two links in one 8-byte load, four loads in flight
+    const float2* src2 = reinterpret_cast<const float2*>(src);
+#pragma unroll 4
+    for (int s = lt; s < nsites; s += G) {
+      const float2 tx = valid ? src2[s] : make_float2(0.0f, 0.0f);
+      T[s] = tx.x;
+      X[s] = tx.y;
+    }
   }
   chain_sync<kWarp>();
 
@@ -106,31 +127,39 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
       sweep_step_warp(T, X, ll, cw, step, a.beta, a.n_overrelax,
                       a.n_heatbath, a.k_rej);
     } else {
-      sweep_step_block(T, X, a.Mx, a.Mt, lt, G, a.seed1, cw, step, a.beta,
-                       a.n_overrelax, a.n_heatbath, a.k_rej);
+      sweep_step_team(T, X, a.Mx, a.Mt, lt, G, a.seed1, cw, step, a.beta,
+                      a.n_overrelax, a.n_heatbath, a.k_rej);
     }
     if (qsum != nullptr) {
       float v[2];
       if constexpr (kWarp) {
         plaquette_sums_warp(T, X, pl, &v[0], &v[1]);
+        warp_reduce(v, P);
       } else {
-        plaquette_sums(T, X, a.Mx, a.Mt, lt, P, &v[0], &v[1]);
+        // its barrier follows the reads, before the next draw's writes
+        team_sum(v, red, rb, lt, G, P,
+                 PlaquetteSlot{T, X, a.Mx, a.Mt, P});
       }
-      chain_reduce<kWarp>(v, red, G, P);
       if (valid && lt == 0) {
         qsum[(size_t)st * a.C + chain] = v[0];
         if (esum != nullptr) esum[(size_t)st * a.C + chain] = v[1];
       }
       // the next draw writes links the sums read
-      chain_sync<kWarp>();
+      if constexpr (kWarp) chain_sync<kWarp>();
     }
   }
 
   if (valid) {
     float* dst = theta_out + (size_t)chain * 2 * nsites;
-    for (int s = lt; s < nsites; s += G) {
-      dst[2 * s] = T[s];
-      dst[2 * s + 1] = X[s];
+    if constexpr (kWarp) {
+      for (int s = lt; s < nsites; s += G) {
+        dst[2 * s] = T[s];
+        dst[2 * s + 1] = X[s];
+      }
+    } else {
+      float2* dst2 = reinterpret_cast<float2*>(dst);
+#pragma unroll 4
+      for (int s = lt; s < nsites; s += G) dst2[s] = make_float2(T[s], X[s]);
     }
   }
 }
@@ -154,9 +183,10 @@ extern "C" int mlmc_max_smem_optin(int device, int* out) {
 // [n_steps, C] f32 or null; work: null, or [C, 2*Mx*Mt] f32 scratch for
 // the global-memory branch (then one chain per block).  chain0: the global
 // index of chain 0 of this launch, which the chain words hash (0 for a
-// launch over all chains; a rank's first chain under a chain mesh).  lanes per chain (a
-// power of two: <= 32 the warp design, else the block's threads), cpb
-// chains per block, smem bytes of dynamic shared memory.
+// launch over all chains; a rank's first chain under a chain mesh).
+// lanes per chain (a power of two: <= 32 the warp design, else the team of
+// the block design, team_layout_ok), cpb chains per block, smem bytes of
+// dynamic shared memory.
 extern "C" int mlmc_schwinger_sweep(const float* theta_in, float* theta_out,
                                     float* qsum, float* esum, float* work,
                                     int C, int Mx,
@@ -169,6 +199,8 @@ extern "C" int mlmc_schwinger_sweep(const float* theta_in, float* theta_out,
   mlmc::SweepArgs a{C,         Mx,   Mt,    n_steps, step_offset, n_overrelax,
                     n_heatbath, k_rej, beta, seed1,  seed2,       chain0,
                     lanes,     cpb};
+  if (lanes > 32 && !mlmc::team_layout_ok(lanes, cpb, Mx * Mt))
+    return (int)cudaErrorInvalidValue;
   const int blocks = (C + cpb - 1) / cpb;
   cudaError_t e;
   if (lanes <= 32) {

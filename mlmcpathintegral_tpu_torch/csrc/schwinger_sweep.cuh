@@ -9,47 +9,20 @@
 // A chain's link field lives in shared memory as two [Mx][Mt] planes
 // (T = temporal links theta_0, X = spatial links theta_1; row j, column
 // i), served by G lanes: an aligned power-of-two share of one warp (the
-// warp design, kWarp), or a whole block (G = blockDim.x) for fields beyond
-// it.  Links of one (mu, parity) group share no plaquette, so they update
-// in place; a chain barrier (__syncwarp() in the warp design,
-// __syncthreads() in a block) separates the groups.  A group's n links
-// are spread over the G lanes, W = G / next_pow2(n) lanes a link when
-// n < G: those lanes run the link's rejection rounds W at a time, and a
-// ballot takes the first round that accepts, as the sequential loop does.
+// warp design, kWarp), or a team of whole warps, a block a chain, for
+// fields beyond it (the block design, at the end of this file).  Links of
+// one (mu, parity) group share no plaquette, so they update in place; a
+// chain barrier (__syncwarp() in the warp design, __syncthreads() in a
+// block) separates the groups.  A group's n links are spread over the G
+// lanes, W = G / next_pow2(n) lanes a link when n < G: those lanes run the
+// link's rejection rounds W at a time, and a ballot takes the first round
+// that accepts, as the sequential loop does.
 
 #pragma once
 
 #include "rng.cuh"
 
 namespace mlmc {
-
-// A(i + di, j + dj) on a periodic [Mx][Mt] plane
-__device__ __forceinline__ float at(const float* A, int j, int i, int dj,
-                                    int di, int Mx, int Mt) {
-  int jj = j + dj;
-  int ii = i + di;
-  jj = jj < 0 ? jj + Mx : (jj >= Mx ? jj - Mx : jj);
-  ii = ii < 0 ? ii + Mt : (ii >= Mt ? ii - Mt : ii);
-  return A[jj * Mt + ii];
-}
-
-// staples (theta_p, theta_m) of link (mu, j, i)
-// (models/qft/schwinger.py staple_angles_mu)
-__device__ __forceinline__ void staples(const float* T, const float* X,
-                                        int mu, int j, int i, int Mx, int Mt,
-                                        float* tp, float* tm) {
-  if (mu == 0) {
-    *tp = mod_2pi(at(T, j, i, 1, 0, Mx, Mt) + X[j * Mt + i] -
-                  at(X, j, i, 0, 1, Mx, Mt));
-    *tm = mod_2pi(at(T, j, i, -1, 0, Mx, Mt) + at(X, j, i, -1, 1, Mx, Mt) -
-                  at(X, j, i, -1, 0, Mx, Mt));
-  } else {
-    *tp = mod_2pi(T[j * Mt + i] + at(X, j, i, 0, 1, Mx, Mt) -
-                  at(T, j, i, 1, 0, Mx, Mt));
-    *tm = mod_2pi(at(T, j, i, 1, -1, Mx, Mt) + at(X, j, i, 0, -1, Mx, Mt) -
-                  at(T, j, i, 0, -1, Mx, Mt));
-  }
-}
 
 // The parts of round r of the centred ExpCos rejection x ~ exp(tau cos x)
 // on [-pi, pi) that read no field value: words ctr0 + 3r + 1 (radius),
@@ -268,69 +241,6 @@ __device__ __forceinline__ int group_site(int mu, int parity, int k, int Mx,
   return *j * Mt + *i;
 }
 
-// One draw of the chain (pallas_schwinger._one_step): n_overrelax
-// reflection sweeps, then n_heatbath ExpCos sweeps, each as the 4 groups
-// (mu, parity) = (0,0), (0,1), (1,0), (1,1).  Heat-bath group g of sweep
-// h reads counters from ((h*4 + g) * k_rej) * 3 on, as the reference
-// draws 3 k_rej words for every element of every group.
-//
-// The block-wide form: a chain on the block's G threads, which loop over
-// a group's links (any field); lt is this thread's place.
-__device__ __forceinline__ void sweep_step_block(
-    float* T, float* X, int Mx, int Mt, int lt, int G, uint32_t seed1,
-    const ChainWords& cw, uint32_t step, float beta, int n_overrelax,
-    int n_heatbath, int k_rej) {
-  for (int o = 0; o < n_overrelax; ++o) {
-    for (int g = 0; g < 4; ++g) {
-      const int mu = g >> 1;
-      const int parity = g & 1;
-      const int n = group_size(mu, parity, Mx, Mt);
-      float* L = mu == 0 ? T : X;
-      for (int k = lt; k < n; k += G) {
-        int j, i;
-        const int s = group_site(mu, parity, k, Mx, Mt, &j, &i);
-        float tp, tm;
-        staples(T, X, mu, j, i, Mx, Mt, &tp, &tm);
-        L[s] = mod_2pi(tp + tm - L[s]);
-      }
-      __syncthreads();
-    }
-  }
-  for (int h = 0; h < n_heatbath; ++h) {
-    for (int g = 0; g < 4; ++g) {
-      const int mu = g >> 1;
-      const int parity = g & 1;
-      const uint32_t ctr0 = (uint32_t)((h * 4 + g) * k_rej * 3);
-      const int n = group_size(mu, parity, Mx, Mt);
-      const int W = lanes_per_item(G, n);
-      const int q = lt & (W - 1);
-      float* L = mu == 0 ? T : X;
-      // every lane runs the same passes (first_accepted is warp-wide)
-      for (int k0 = 0; k0 < n; k0 += G / W) {
-        const int k = k0 + lt / W;
-        const bool active = k < n;
-        int j, i;
-        const int s =
-            group_site(mu, parity, active ? k : 0, Mx, Mt, &j, &i);
-        float tp, tm, tau, shift;
-        staples(T, X, mu, j, i, Mx, Mt, &tp, &tm);
-        expcos_shift(tp, tm, beta, &tau, &shift);
-        const float sigma = expcos_sigma(tau);
-        const StreamUniform uni{step_base(site_hash(seed1, (uint32_t)s),
-                                          step),
-                                cw};
-        const auto round = [&](int r, float* prop) {
-          return expcos_round(uni, ctr0, r, tau, sigma, prop);
-        };
-        float x;
-        if (first_accepted(round, k_rej, W, q, active, &x) && q == 0)
-          L[s] = mod_2pi(x + shift);
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // periodic index (j + dj, i + di) of an [Mx][Mt] plane, as at() reads it
 __device__ __forceinline__ int wrap_index(int j, int i, int Mx, int Mt) {
   j = j < 0 ? j + Mx : (j >= Mx ? j - Mx : j);
@@ -461,38 +371,14 @@ __device__ __forceinline__ void sweep_step_warp(
   }
 }
 
-// The chain's sums of K per-lane values, every lane of the chain getting
-// them: in the warp design a butterfly over the P lanes that hold the
-// chain's sites (lanes P.. hold copies), else the block's tree
-// (rng.cuh chain_sum over G threads).  With site s on lane s mod P, the
-// butterfly adds in the tree's order.
-template <bool kWarp, int K>
-__device__ __forceinline__ void chain_reduce(float (&v)[K], float* red,
-                                             int G, int P) {
-  if constexpr (kWarp) {
+// The warp design's sums of K per-lane values, every lane of the chain
+// getting them: a butterfly over the P lanes that hold the chain's sites
+// (lanes P.. hold copies).  With site s on lane s mod P, the butterfly adds
+// in the order of the block-wide tree (rng.cuh chain_sum over P threads).
+template <int K>
+__device__ __forceinline__ void warp_reduce(float (&v)[K], int P) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = lanes_sum(v[k], P);
-  } else {
-    chain_sum<K>(v, red, G);
-  }
-}
-
-// per-thread partial sums over its sites of mod_2pi(theta_P) and
-// cos(theta_P), theta_P = T + X(i+1) - T(j+1) - X
-__device__ __forceinline__ void plaquette_sums(const float* T, const float* X,
-                                               int Mx, int Mt, int lt,
-                                               int tpc, float* q, float* e) {
-  float qs = 0.0f, es = 0.0f;
-  for (int s = lt; s < Mx * Mt; s += tpc) {
-    const int j = s / Mt;
-    const int i = s - j * Mt;
-    const float p = mod_2pi(T[s] + at(X, j, i, 0, 1, Mx, Mt) -
-                            at(T, j, i, 1, 0, Mx, Mt) - X[s]);
-    qs += p;
-    es += cosf(p);
-  }
-  *q = qs;
-  *e = es;
+  for (int k = 0; k < K; ++k) v[k] = lanes_sum(v[k], P);
 }
 
 // The warp design's plaquettes of a lane for the chain's sums: sites
@@ -522,7 +408,8 @@ __device__ __forceinline__ LanePlaq lane_plaq(int lp, int P, int Mx,
   return p;
 }
 
-// plaquette_sums over the lane's fixed plaquettes, in the same order
+// the sums of mod_2pi(theta_P) and cos(theta_P), theta_P = T + X(i+1) -
+// T(j+1) - X, over the lane's fixed plaquettes in order
 __device__ __forceinline__ void plaquette_sums_warp(const float* T,
                                                     const float* X,
                                                     const LanePlaq& p,
@@ -539,5 +426,349 @@ __device__ __forceinline__ void plaquette_sums_warp(const float* T,
   *q = qs;
   *e = es;
 }
+
+// ---- The block design: a chain on a team of whole warps ------------------
+//
+// A field beyond the warp design puts a chain on a team of G threads (a
+// power of two from 64 to 512), a block a chain.  The launch function
+// (ops/schwinger.py block_threads) takes G from the field and the chain
+// count: the threads of the earlier block design (P = min(1024,
+// next_pow2(items)), one item a thread), at most 512, while the launch has
+// few chains an SM, fewer threads a chain when it has more, so that
+// several chains are resident on an SM and a barrier of one chain stalls
+// its own warps while the other chains' warps run.  A thread takes the
+// items k = lt, lt + G, ... of each link group (or cell set), their grid
+// places walked without a division (GridWalk) and their neighbours
+// wrapped by compares.  A thread's heat-bath links run their rejection
+// rounds interleaved, a flat loop over (link, round), so a warp waits for
+// the slowest thread's total rounds, not for the slowest link of every
+// pass; with one link a thread the warp pools the links still drawing
+// after round 0 (pooled_heatbath_link).  The chain's sums add in the
+// order of chain_sum's tree over the earlier design's P threads with one
+// barrier (team_sum).  Every link and every sum takes the bits it took
+// there.
+
+// The places (row r, column c) of the items k0, k0 + step, ... of a grid
+// with rows of len items, one step without a division
+struct GridWalk {
+  int r, c, dr, dc, len;
+
+  __device__ __forceinline__ GridWalk(int k0, int step, int len_)
+      : len(len_) {
+    const int l = len_ > 0 ? len_ : 1;
+    r = k0 / l;
+    c = k0 - r * l;
+    dr = step / l;
+    dc = step - dr * l;
+  }
+
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= len) {
+      c -= len;
+      ++r;
+    }
+  }
+};
+
+// links a row of group (mu, parity) holds (group_site's row length)
+__device__ __forceinline__ int group_len(int mu, int parity, int Mt) {
+  return mu == 0 ? Mt : (Mt - parity + 1) >> 1;
+}
+
+// the link of group (mu, parity) at a walk's place with the five other
+// links its staples read (lane_link's indices, wrapped by compares)
+__device__ __forceinline__ LaneLink block_link(int mu, int parity,
+                                               const GridWalk& w, int Mx,
+                                               int Mt) {
+  const int j = mu == 0 ? parity + 2 * w.r : w.r;
+  const int i = mu == 0 ? w.c : parity + 2 * w.c;
+  const int jp = j + 1 == Mx ? 0 : j + 1;
+  const int jm = j == 0 ? Mx - 1 : j - 1;
+  const int ip = i + 1 == Mt ? 0 : i + 1;
+  const int im = i == 0 ? Mt - 1 : i - 1;
+  LaneLink l;
+  l.s = j * Mt + i;
+  if (mu == 0) {
+    l.a0 = jp * Mt + i;   // T(j+1, i)
+    l.a1 = j * Mt + ip;   // X(j, i+1)
+    l.a2 = jm * Mt + i;   // T(j-1, i)
+    l.a3 = jm * Mt + ip;  // X(j-1, i+1)
+    l.a4 = l.a2;          // X(j-1, i)
+  } else {
+    l.a0 = j * Mt + ip;   // X(j, i+1)
+    l.a1 = jp * Mt + i;   // T(j+1, i)
+    l.a2 = jp * Mt + im;  // T(j+1, i-1)
+    l.a3 = j * Mt + im;   // X(j, i-1)
+    l.a4 = l.a3;          // T(j, i-1)
+  }
+  return l;
+}
+
+// A heat-bath group with one link at most a thread: every thread runs
+// round 0 of its link, then the warp pools the links still drawing and
+// runs their next rounds breadth first, W = 32 / next_pow2(pending) lanes
+// a link, W rounds at a time, the first accepting one taken by ballot, so
+// a warp waits for about three round times instead of its slowest link's
+// four or five.  A link's state moves to its lanes by shuffles; every
+// link takes the first of its k_rej rounds that accepts, as the
+// sequential loop does, and stays when none does.
+__device__ __forceinline__ void pooled_heatbath_link(
+    const float* T, const float* X, float* L, int mu, int parity, int lt,
+    int n, int len, int Mx, int Mt, uint32_t seed1, const ChainWords& cw,
+    uint32_t step, uint32_t ctr0, float beta, int k_rej) {
+  const int lane = threadIdx.x & 31;
+  const bool active = lt < n;
+  float tau = 0.0f, shift = 0.0f, sigma = 0.0f;
+  uint32_t base_s = 0u;
+  int s = 0;
+  if (active) {
+    const LaneLink l = block_link(mu, parity, GridWalk(lt, 0, len), Mx, Mt);
+    float tp, tm;
+    link_staples(T, X, mu, l, &tp, &tm);
+    expcos_shift(tp, tm, beta, &tau, &shift);
+    sigma = expcos_sigma(tau);
+    base_s = step_base(site_hash(seed1, (uint32_t)l.s), step);
+    s = l.s;
+  }
+  float prop = 0.0f;
+  const bool ok0 = active && k_rej > 0 &&
+                   expcos_round(StreamUniform{base_s, cw}, ctr0, 0, tau,
+                                sigma, &prop);
+  if (ok0) L[s] = mod_2pi(prop + shift);
+  // the links still drawing, all at round r
+  unsigned pm = __ballot_sync(0xffffffffu, active && !ok0);
+  for (int r = 1; pm != 0u && r < k_rej;) {
+    const int np = __popc(pm);
+    const int W = 32 / pow2_ceil(np);
+    const int j = lane / W, q = lane & (W - 1);
+    const bool has = j < np;
+    const int src = has ? (int)__fns(pm, 0, j + 1) : lane;
+    const float tau_j = __shfl_sync(0xffffffffu, tau, src);
+    const float sigma_j = __shfl_sync(0xffffffffu, sigma, src);
+    const float shift_j = __shfl_sync(0xffffffffu, shift, src);
+    const uint32_t base_j = __shfl_sync(0xffffffffu, base_s, src);
+    const int s_j = __shfl_sync(0xffffffffu, s, src);
+    float p = 0.0f;
+    const bool ok = has && r + q < k_rej &&
+                    expcos_round(StreamUniform{base_j, cw}, ctr0, r + q,
+                                 tau_j, sigma_j, &p);
+    const unsigned group =
+        W == 32 ? 0xffffffffu : ((1u << W) - 1u) << (lane & ~(W - 1));
+    const unsigned hits = __ballot_sync(0xffffffffu, ok) & group;
+    const float first =
+        __shfl_sync(0xffffffffu, p, hits != 0u ? __ffs(hits) - 1 : lane);
+    if (has && q == 0 && hits != 0u) L[s_j] = mod_2pi(first + shift_j);
+    // each pending link's owner learns from its group's first lane
+    const int rank = __popc(pm & ((1u << lane) - 1u));
+    const bool took = __shfl_sync(0xffffffffu, hits != 0u ? 1 : 0,
+                                  ((pm >> lane) & 1u) ? rank * W : lane) != 0;
+    pm = __ballot_sync(0xffffffffu, ((pm >> lane) & 1u) && !took);
+    r += W;
+  }
+}
+
+// One draw of the chain (pallas_schwinger._one_step): n_overrelax
+// reflection sweeps, then n_heatbath ExpCos sweeps, each as the 4 groups
+// (mu, parity) = (0,0), (0,1), (1,0), (1,1).  Heat-bath group g of sweep
+// h reads counters from ((h*4 + g) * k_rej) * 3 on, as the reference
+// draws 3 k_rej words for every element of every group.  The block
+// design's form: lt is this thread's place in the chain's team of G.
+__device__ __forceinline__ void sweep_step_team(
+    float* T, float* X, int Mx, int Mt, int lt, int G, uint32_t seed1,
+    const ChainWords& cw, uint32_t step, float beta, int n_overrelax,
+    int n_heatbath, int k_rej) {
+  for (int o = 0; o < n_overrelax; ++o) {
+    for (int g = 0; g < 4; ++g) {
+      const int mu = g >> 1;
+      const int parity = g & 1;
+      const int n = group_size(mu, parity, Mx, Mt);
+      float* L = mu == 0 ? T : X;
+      GridWalk w(lt, G, group_len(mu, parity, Mt));
+      for (int k = lt; k < n; k += G, w.next()) {
+        const LaneLink l = block_link(mu, parity, w, Mx, Mt);
+        float tp, tm;
+        link_staples(T, X, mu, l, &tp, &tm);
+        L[l.s] = mod_2pi(tp + tm - L[l.s]);
+      }
+      __syncthreads();
+    }
+  }
+  for (int h = 0; h < n_heatbath; ++h) {
+    for (int g = 0; g < 4; ++g) {
+      const int mu = g >> 1;
+      const int parity = g & 1;
+      const uint32_t ctr0 = (uint32_t)((h * 4 + g) * k_rej * 3);
+      const int n = group_size(mu, parity, Mx, Mt);
+      const int len = group_len(mu, parity, Mt);
+      float* L = mu == 0 ? T : X;
+      const int W = lanes_per_item(G, n);
+      if (n == 0) {
+        // an empty group (a field one link wide)
+      } else if (W > 1) {
+        // fewer links than threads: W lanes a link run its rounds W at a
+        // time (one link at most a lane)
+        const int q = lt & (W - 1);
+        const bool active = lt / W < n;
+        const LaneLink l = block_link(
+            mu, parity, GridWalk(active ? lt / W : 0, 0, len), Mx, Mt);
+        float tp, tm, tau, shift;
+        link_staples(T, X, mu, l, &tp, &tm);
+        expcos_shift(tp, tm, beta, &tau, &shift);
+        const float sigma = expcos_sigma(tau);
+        const StreamUniform uni{
+            step_base(site_hash(seed1, (uint32_t)l.s), step), cw};
+        const auto round = [&](int r, float* prop) {
+          return expcos_round(uni, ctr0, r, tau, sigma, prop);
+        };
+        float x;
+        if (first_accepted(round, k_rej, W, q, active, &x) && q == 0)
+          L[l.s] = mod_2pi(x + shift);
+      } else if (n <= G) {
+        pooled_heatbath_link(T, X, L, mu, parity, lt, n, len, Mx, Mt, seed1,
+                             cw, step, ctr0, beta, k_rej);
+      } else {
+        // the thread's links one round at a time: a link that accepts (or
+        // runs out of rounds) hands the next round to the next link
+        GridWalk w(lt, G, len);
+        int k = lt, r = 0, s = 0;
+        float tau = 0.0f, shift = 0.0f, sigma = 0.0f;
+        uint32_t base_s = 0u;
+        bool fresh = true;  // at a new link
+        while (k < n) {
+          if (fresh) {
+            const LaneLink l = block_link(mu, parity, w, Mx, Mt);
+            float tp, tm;
+            link_staples(T, X, mu, l, &tp, &tm);
+            expcos_shift(tp, tm, beta, &tau, &shift);
+            sigma = expcos_sigma(tau);
+            base_s = step_base(site_hash(seed1, (uint32_t)l.s), step);
+            s = l.s;
+            r = 0;
+            fresh = false;
+          }
+          float prop = 0.0f;
+          const bool ok =
+              r < k_rej &&
+              expcos_round(StreamUniform{base_s, cw}, ctr0, r, tau, sigma,
+                           &prop);
+          if (ok) L[s] = mod_2pi(prop + shift);
+          if (ok || ++r >= k_rej) {
+            k += G;
+            w.next();
+            fresh = true;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// slots a thread sums in team_sum, at most: P / G <= TEAM_SLOTS
+constexpr int TEAM_SLOTS = 8;
+
+// whether G threads a chain and cpb chains a block is a block-design
+// launch for a chain of n sites or cells: a chain a block, G a power of
+// two from 64 (a smaller share of a warp is the warp design's) to P =
+// min(1024, next_pow2(n)), and at least P / TEAM_SLOTS
+__host__ __device__ inline bool team_layout_ok(int G, int cpb, int n) {
+  int P = 1;
+  while (P < n && P < 1024) P <<= 1;
+  return cpb == 1 && G >= 64 && (G & (G - 1)) == 0 && G <= P &&
+         G * TEAM_SLOTS >= P;
+}
+
+// team_sum's slots k and k + 4 of a thread (base its first), added; an
+// absent slot (past the thread's m) is +0
+template <int K, class Slot>
+__device__ __forceinline__ void slot_pair(const Slot& slot, int base, int G,
+                                          int m, int k, float (&o)[K]) {
+  float b[K];
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+    o[x] = 0.0f;
+    b[x] = 0.0f;
+  }
+  if (k < m) slot(base + G * k, o);
+  if (k + 4 < m) slot(base + G * (k + 4), b);
+#pragma unroll
+  for (int x = 0; x < K; ++x) o[x] = o[x] + b[x];
+}
+
+// The chain's sums of K values over P slots (the threads a chain of the
+// earlier block design), every thread of the team of G (G <= P <=
+// TEAM_SLOTS G) getting them, in the order of rng.cuh chain_sum's tree over
+// P threads, which adds the highest bit of the slot index first.  Thread
+// lt = 32 w + l takes slots w + (G/32) l + G k, k < P/G: the slot index's
+// highest bits are k, then l, then w.  So the thread adds its slots in
+// pairs at distance 4, 2, 1 (an absent slot is +0, which leaves a sum's
+// bits as they are: a slot's sum starts at +0 and never holds -0), then
+// the butterfly over the lanes (offsets 16 .. 1), then, through shared
+// memory, the butterfly over the warps (offsets G/64 .. 1), which every
+// warp takes.  slot(sl, v) adds slot sl's values to v, in the earlier
+// design's order.  red: two buffers of K G/32 floats, used in turn (rb
+// flips), so one barrier a call suffices: a thread writes a buffer only
+// after the barrier of the call that followed its last read of it.  The
+// barrier also follows every read slot() makes.
+template <int K, class Slot>
+__device__ __forceinline__ void team_sum(float (&v)[K], float* red, int& rb,
+                                         int lt, int G, int P,
+                                         const Slot& slot) {
+  const int nw = G >> 5;
+  const int w = lt >> 5;
+  const int lane = lt & 31;
+  const int base = w + nw * lane;
+  const int m = P / G;
+  float s0[K], s1[K], t[K];
+  slot_pair(slot, base, G, m, 0, s0);
+  slot_pair(slot, base, G, m, 2, t);
+#pragma unroll
+  for (int x = 0; x < K; ++x) s0[x] = s0[x] + t[x];
+  slot_pair(slot, base, G, m, 1, s1);
+  slot_pair(slot, base, G, m, 3, t);
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+    s1[x] = s1[x] + t[x];
+    v[x] = s0[x] + s1[x];
+  }
+#pragma unroll
+  for (int x = 0; x < K; ++x) v[x] = lanes_sum(v[x], 32);
+  float* buf = red + rb * K * nw;
+  rb ^= 1;
+  if (lane == 0) {
+#pragma unroll
+    for (int x = 0; x < K; ++x) buf[x * nw + w] = v[x];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+    float u = lane < nw ? buf[x * nw + lane] : 0.0f;
+    for (int off = nw >> 1; off > 0; off >>= 1)
+      u += __shfl_xor_sync(0xffffffffu, u, off);
+    v[x] = __shfl_sync(0xffffffffu, u, 0);
+  }
+}
+
+// team_sum's slot of the plaquette sums: mod_2pi(theta_P) and
+// cos(theta_P) at the sites sl, sl + P, ... in that order
+struct PlaquetteSlot {
+  const float* T;
+  const float* X;
+  int Mx, Mt, P;
+
+  __device__ __forceinline__ void operator()(int sl, float (&v)[2]) const {
+    GridWalk w(sl, P, Mt);
+    for (int s = sl; s < Mx * Mt; s += P, w.next()) {
+      const int ip = w.c + 1 == Mt ? 0 : w.c + 1;
+      const int jp = w.r + 1 == Mx ? 0 : w.r + 1;
+      const float p =
+          mod_2pi(T[s] + X[w.r * Mt + ip] - T[jp * Mt + w.c] - X[s]);
+      v[0] += p;
+      v[1] += cosf(p);
+    }
+  }
+};
 
 }  // namespace mlmc

@@ -33,10 +33,11 @@
 // rejection rounds ahead: four a link in the coarse sweeps, two a cell in
 // the BesselProduct draws, the two ExpCos fills of all cells side by side
 // (schwinger_sweep.cuh first_accepted); the halves of the warp share a
-// cell's cosines in phase D.  A larger field takes a block a chain, one
-// cell a thread, with __syncthreads() and the shared-memory tree.  The special functions
-// are the Abramowitz-Stegun forms of the reference kernel so the
-// arithmetic matches its plain version.
+// cell's cosines in phase D.  A larger field takes the block design
+// (schwinger_twolevel_team_kernel): a chain on a team of 64 to 512
+// threads, a block a chain, several chains an SM when the launch has
+// many.  The special functions are the Abramowitz-Stegun forms of the
+// reference kernel so the arithmetic matches its plain version.
 
 #include <cuda_runtime.h>
 
@@ -138,15 +139,20 @@ struct Cell {
   uint32_t h;
 };
 
-__device__ __forceinline__ Cell cell_at(int c, int Mxc, int Mtc,
+__device__ __forceinline__ Cell cell_of(int J, int I, int Mxc, int Mtc,
                                         uint32_t seed1) {
-  const int J = c / Mtc, I = c - J * Mtc;
   Cell x;
-  x.c = c;
+  x.c = J * Mtc + I;
   x.r = J * Mtc + (I + 1 >= Mtc ? I + 1 - Mtc : I + 1);
   x.d = (J + 1 >= Mxc ? J + 1 - Mxc : J + 1) * Mtc + I;
-  x.h = site_hash(seed1, (uint32_t)c);
+  x.h = site_hash(seed1, (uint32_t)x.c);
   return x;
+}
+
+__device__ __forceinline__ Cell cell_at(int c, int Mxc, int Mtc,
+                                        uint32_t seed1) {
+  const int J = c / Mtc;
+  return cell_of(J, c - J * Mtc, Mxc, Mtc, seed1);
 }
 
 // x_p - x_m folded to [0, pi] with its sign (_approx_fold)
@@ -226,8 +232,241 @@ __device__ __forceinline__ float expcos_log_eval(float x, float beta,
 // site (j, i) = (2J + a, 2I + b) of coarse cell (J, I)
 enum { T00 = 0, T01, T10, T11, X00, X01, X10, X11 };
 
-template <bool kWarp>
-__global__ void __launch_bounds__(kWarp ? 128 : 1024)
+// A chain's slice of shared memory: its counter-word table, then its
+// current fine components [8][n], trial components [8][n], coarse links
+// [n] + [n] and restrict(current) [2][n]
+struct TwoLevelSlice {
+  float *F, *Tr, *Tc, *Xc, *Rc;
+};
+
+__device__ __forceinline__ TwoLevelSlice twolevel_slice(float* mine,
+                                                        int n) {
+  TwoLevelSlice f;
+  f.F = mine + TWOLEVEL_WORDS;
+  f.Tr = f.F + 8 * n;
+  f.Tc = f.Tr + 8 * n;
+  f.Xc = f.Tc + n;
+  f.Rc = f.Xc + n;
+  return f;
+}
+
+// a chain's fields into its slice (zeros for a block's chain past C):
+// fine index ((j*Mt + i)*2 + mu), coarse ((J*Mtc + I)*2 + mu)
+__device__ __forceinline__ void load_fields(const TwoLevelSlice& f,
+                                            const float* fine_in,
+                                            const float* coarse_in,
+                                            int chain, bool valid, int Mtc,
+                                            int n, int lt, int G) {
+  const int Mt = 2 * Mtc;
+  for (int c = lt; c < n; c += G) {
+    const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
+    for (int k = 0; k < 8; ++k) {
+      const int mu = k >> 2, ja = (k >> 1) & 1, ib = k & 1;
+      const size_t o = (size_t)chain * 8 * n +
+                       (size_t)(((2 * J + ja) * Mt + 2 * I + ib) * 2 + mu);
+      f.F[k * n + c] = valid ? fine_in[o] : 0.0f;
+    }
+    f.Tc[c] = valid ? coarse_in[(size_t)chain * 2 * n + 2 * c] : 0.0f;
+    f.Xc[c] = valid ? coarse_in[(size_t)chain * 2 * n + 2 * c + 1] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store_fields(const TwoLevelSlice& f,
+                                             float* fine_out,
+                                             float* coarse_out, int chain,
+                                             int Mtc, int n, int lt, int G) {
+  const int Mt = 2 * Mtc;
+  for (int c = lt; c < n; c += G) {
+    const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
+    for (int k = 0; k < 8; ++k) {
+      const int mu = k >> 2, ja = (k >> 1) & 1, ib = k & 1;
+      fine_out[(size_t)chain * 8 * n +
+               (size_t)(((2 * J + ja) * Mt + 2 * I + ib) * 2 + mu)] =
+          f.F[k * n + c];
+    }
+    coarse_out[(size_t)chain * 2 * n + 2 * c] = f.Tc[c];
+    coarse_out[(size_t)chain * 2 * n + 2 * c + 1] = f.Xc[c];
+  }
+}
+
+// counters of the fill stream: u of phase B, the T10 (e) and T11 (o)
+// ExpCos fills of phase C, the accept uniform
+struct FillCounters {
+  uint32_t u, e, o, acc;
+};
+
+__device__ __forceinline__ FillCounters fill_counters(const TwoLevelArgs& a) {
+  const uint32_t n_bessel = a.exact ? (a.small_beta ? 2u : 4u) *
+                                          (uint32_t)a.k_rej_bessel
+                                    : 3u;
+  FillCounters k;
+  k.u = 2u + n_bessel + 1u;
+  k.e = k.u;  // T10 words after u
+  k.o = k.e + 3u * (uint32_t)a.k_rej_fill;
+  k.acc = k.o + 3u * (uint32_t)a.k_rej_fill + 1u;
+  return k;
+}
+
+// A: cell c's trial perimeter links (prolongate + randomisation, words 1
+// and 2) and restrict(current)
+__device__ __forceinline__ void perimeter_fill(const TwoLevelSlice& f,
+                                               int n, int c,
+                                               const StreamUniform& uni) {
+  const float u_t = PI_F * (2.0f * uni(1u) - 1.0f);
+  const float u_x = PI_F * (2.0f * uni(2u) - 1.0f);
+  f.Tr[T00 * n + c] = mod_2pi(0.5f * f.Tc[c] + u_t);
+  f.Tr[T01 * n + c] = mod_2pi(0.5f * f.Tc[c] - u_t);
+  f.Tr[X00 * n + c] = mod_2pi(0.5f * f.Xc[c] + u_x);
+  f.Tr[X10 * n + c] = mod_2pi(0.5f * f.Xc[c] - u_x);
+  f.Rc[c] = mod_2pi(f.F[T00 * n + c] + f.F[T01 * n + c]);
+  f.Rc[n + c] = mod_2pi(f.F[X00 * n + c] + f.F[X10 * n + c]);
+}
+
+// B: the staples of a cell's interior vertical links' sum
+__device__ __forceinline__ void vertical_staples(const float* Tr, int n,
+                                                 const Cell& cl,
+                                                 float* theta_p,
+                                                 float* theta_m) {
+  const int c = cl.c;
+  *theta_p = mod_2pi(Tr[T01 * n + c] + Tr[X00 * n + cl.r] +
+                     Tr[X10 * n + cl.r] - Tr[T01 * n + cl.d]);
+  *theta_m = mod_2pi(Tr[X00 * n + c] + Tr[X10 * n + c] +
+                     Tr[T00 * n + cl.d] - Tr[T00 * n + c]);
+}
+
+// B: the vertical links from their sum tt and the word u
+__device__ __forceinline__ void vertical_split(float* Tr, int n, int c,
+                                               float tt,
+                                               const StreamUniform& uni,
+                                               uint32_t ctr_u) {
+  const float u = PI_F * (2.0f * uni(ctr_u) - 1.0f);
+  Tr[X01 * n + c] = mod_2pi(0.5f * tt + u);
+  Tr[X11 * n + c] = mod_2pi(0.5f * tt - u);
+}
+
+// C: the staples of a cell's T10 (even) or T11 (odd) ExpCos draw
+__device__ __forceinline__ void horizontal_staples(const float* Tr, int n,
+                                                   const Cell& cl, bool odd,
+                                                   float* tp, float* tm) {
+  const int c = cl.c;
+  if (!odd) {
+    *tp = mod_2pi(Tr[T00 * n + c] + Tr[X01 * n + c] - Tr[X00 * n + c]);
+    *tm = mod_2pi(Tr[X10 * n + c] + Tr[T00 * n + cl.d] - Tr[X11 * n + c]);
+  } else {
+    *tp = mod_2pi(Tr[T01 * n + c] + Tr[X00 * n + cl.r] - Tr[X01 * n + c]);
+    *tm = mod_2pi(Tr[X11 * n + c] + Tr[T01 * n + cl.d] -
+                  Tr[X10 * n + cl.r]);
+  }
+}
+
+// D: a cell's five dS terms, added to v: s_fine of the trial, s_coarse of
+// restrict(current) and of the coarse state, s_cond (the plaquette
+// staples and the log of the normalisation series, or the approximate
+// fill's two terms)
+__device__ __forceinline__ void ds_terms(const TwoLevelSlice& f, int n,
+                                         const Cell& cl,
+                                         const TwoLevelArgs& a,
+                                         const float* alphas,
+                                         float (&v)[5]) {
+  const float* Tr = f.Tr;
+  const int c = cl.c;
+  const float t00 = Tr[T00 * n + c], t01 = Tr[T01 * n + c];
+  const float t10 = Tr[T10 * n + c], t11 = Tr[T11 * n + c];
+  const float x00 = Tr[X00 * n + c], x01 = Tr[X01 * n + c];
+  const float x10 = Tr[X10 * n + c], x11 = Tr[X11 * n + c];
+  const float sx00 = Tr[X00 * n + cl.r];
+  const float sx10 = Tr[X10 * n + cl.r];
+  const float st00 = Tr[T00 * n + cl.d];
+  const float st01 = Tr[T01 * n + cl.d];
+  // s_fine of the trial: the four sub-plaquettes of the cell
+  const float P00 = t00 + x01 - t10 - x00;
+  const float P01 = t01 + sx00 - t11 - x01;
+  const float P10 = t10 + x11 - st00 - x10;
+  const float P11 = t11 + sx10 - st01 - x11;
+  v[0] += (1.0f - cosf(P00)) + (1.0f - cosf(P01)) + (1.0f - cosf(P10)) +
+          (1.0f - cosf(P11));
+  // s_coarse of restrict(current) and of the coarse state
+  const float Pr = f.Rc[c] + f.Rc[n + cl.r] - f.Rc[cl.d] - f.Rc[n + c];
+  const float Pc = f.Tc[c] + f.Xc[cl.r] - f.Tc[cl.d] - f.Xc[c];
+  v[1] += 1.0f - cosf(Pr);
+  v[2] += 1.0f - cosf(Pc);
+  if (a.exact) {
+    // s_cond: plaquette staples + log of the normalisation series
+    const float phi_12 = x10 + st00;
+    const float phi_23 = st01 - sx10;
+    const float phi_34 = -t01 - sx00;
+    const float phi_41 = -t00 + x00;
+    const float th_1 = t10, th_2 = -x11, th_3 = -t11, th_4 = x01;
+    const float Phi = phi_12 + phi_23 + phi_34 + phi_41;
+    v[3] += cosf(th_1 - th_2 - phi_12) + cosf(th_2 - th_3 - phi_23) +
+            cosf(th_3 - th_4 - phi_34) + cosf(th_4 - th_1 - phi_41);
+    float series = 1.0f;
+    for (int m = 0; m < a.n_alpha; ++m)
+      series = series + alphas[m] * cosf((float)(m + 1) * Phi);
+    v[4] += logf(series);
+  } else {
+    // s_cond_approx: vertical-sum mixture + horizontal ExpCos terms
+    const float theta_p = mod_2pi(t01 + sx00 + sx10 - st01);
+    const float theta_m = mod_2pi(x00 + x10 + st00 - t00);
+    const float th_v = mod_2pi(x01 + x11);
+    v[3] += approx_log_eval(th_v, theta_p, theta_m, a.beta);
+    const float tp_e = mod_2pi(t00 + x01 - x00);
+    const float tm_e = mod_2pi(x10 + st00 - x11);
+    const float tp_o = mod_2pi(t01 + sx00 - x01);
+    const float tm_o = mod_2pi(x11 + st01 - sx10);
+    v[4] += expcos_log_eval(t10, a.beta, tp_e, tm_e) +
+            expcos_log_eval(t11, a.beta, tp_o, tm_o);
+  }
+}
+
+// E: a cell's four fine charges (field Fs) and its coarse charge, added
+// to w
+__device__ __forceinline__ void charge_terms(const float* Fs,
+                                             const float* Tc,
+                                             const float* Xc, int n,
+                                             const Cell& cl,
+                                             float (&w)[2]) {
+  const int c = cl.c;
+  const float t00 = Fs[T00 * n + c], t01 = Fs[T01 * n + c];
+  const float t10 = Fs[T10 * n + c], t11 = Fs[T11 * n + c];
+  const float x00 = Fs[X00 * n + c], x01 = Fs[X01 * n + c];
+  const float x10 = Fs[X10 * n + c], x11 = Fs[X11 * n + c];
+  w[0] += mod_2pi(t00 + x01 - t10 - x00) +
+          mod_2pi(t01 + Fs[X00 * n + cl.r] - t11 - x01) +
+          mod_2pi(t10 + x11 - Fs[T00 * n + cl.d] - x10) +
+          mod_2pi(t11 + Fs[X10 * n + cl.r] - Fs[T01 * n + cl.d] - x11);
+  w[1] += mod_2pi(Tc[c] + Xc[cl.r] - Tc[cl.d] - Xc[c]);
+}
+
+// The three-term dS Metropolis test of the trial from the chain's D sums
+// (the uniform of cell (0, 0)); a cell whose truncated rejection found no
+// draw force-rejects
+struct TrialTest {
+  float S_f, S_q;
+  bool accept;
+};
+
+__device__ __forceinline__ TrialTest trial_test(const float (&v)[5],
+                                                float S_f, float S_q,
+                                                bool any_failed,
+                                                const TwoLevelArgs& a,
+                                                const ChainWords& cw,
+                                                uint32_t stp,
+                                                uint32_t ctr_acc) {
+  TrialTest t;
+  t.S_f = a.beta * v[0];
+  const float dS_coarse = a.beta_c * v[1] - a.beta_c * v[2];
+  t.S_q = a.exact ? -a.beta * v[3] + v[4] : -v[3] - v[4];
+  const float dS = (t.S_f - S_f) + dS_coarse + (S_q - t.S_q);
+  const StreamUniform uni0{step_base(site_hash(a.seed1, 0u), stp), cw};
+  const float u_acc = uni0(ctr_acc);
+  t.accept = !any_failed && (dS < 0.0f || u_acc < expf(-dS));
+  return t;
+}
+
+// The warp design (coarse grids up to 64 cells): a chain on one warp or
+// an aligned share of one
+__global__ void __launch_bounds__(128)
     schwinger_twolevel_kernel(
         const float* __restrict__ fine_in,
         const float* __restrict__ coarse_in,
@@ -240,7 +479,6 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
   extern __shared__ float smem[];
   const int Mxc = a.Mxc, Mtc = a.Mtc;
   const int n = Mxc * Mtc;
-  const int Mt = 2 * Mtc;
   const int G = a.lanes;
   const int lc = threadIdx.x / G;
   const int lt = threadIdx.x & (G - 1);
@@ -249,12 +487,10 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
   const uint32_t ch = a.chain0 + (uint32_t)chain;
   const int slice = TWOLEVEL_WORDS + 20 * n;
   float* mine = smem + (size_t)lc * slice;
-  float* F = mine + TWOLEVEL_WORDS;  // current fine components [8][n]
-  float* Tr = F + 8 * n;             // trial components [8][n]
-  float* Tc = Tr + 8 * n;            // coarse links [n]
-  float* Xc = Tc + n;
-  float* Rc = Xc + n;                // restrict(current) [2][n]
-  float* red = smem + (size_t)a.cpb * slice;
+  const TwoLevelSlice f = twolevel_slice(mine, n);
+  float* Tr = f.Tr;
+  const float* Tc = f.Tc;
+  const float* Xc = f.Xc;
   // lanes holding the chain's cells for the sums; this chain's lanes
   const int P = min(G, pow2_ceil(n));
   const unsigned chain_mask =
@@ -264,30 +500,12 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
   const ChainWords cw =
       chain_words(reinterpret_cast<uint32_t*>(mine), TWOLEVEL_WORDS, a.seed2,
                   ch, lt, G);
-  // load: fine index ((j*Mt + i)*2 + mu), coarse ((J*Mtc + I)*2 + mu)
-  for (int c = lt; c < n; c += G) {
-    const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
-    for (int k = 0; k < 8; ++k) {
-      const int mu = k >> 2, ja = (k >> 1) & 1, ib = k & 1;
-      const size_t o = (size_t)chain * 8 * n +
-                       (size_t)(((2 * J + ja) * Mt + 2 * I + ib) * 2 + mu);
-      F[k * n + c] = valid ? fine_in[o] : 0.0f;
-    }
-    Tc[c] = valid ? coarse_in[(size_t)chain * 2 * n + 2 * c] : 0.0f;
-    Xc[c] = valid ? coarse_in[(size_t)chain * 2 * n + 2 * c + 1] : 0.0f;
-  }
+  load_fields(f, fine_in, coarse_in, chain, valid, Mtc, n, lt, G);
   float S_f = valid ? sf_in[chain] : 0.0f;
   float S_q = valid ? sq_in[chain] : 0.0f;
-  chain_sync<kWarp>();
+  __syncwarp();
 
-  // counters of the fill stream
-  const uint32_t n_bessel = a.exact ? (a.small_beta ? 2u : 4u) *
-                                          (uint32_t)a.k_rej_bessel
-                                    : 3u;
-  const uint32_t ctr_u = 2u + n_bessel + 1u;
-  const uint32_t ctr_e = ctr_u;                    // T10 words after u
-  const uint32_t ctr_o = ctr_e + 3u * (uint32_t)a.k_rej_fill;
-  const uint32_t ctr_acc = ctr_o + 3u * (uint32_t)a.k_rej_fill + 1u;
+  const FillCounters ctr = fill_counters(a);
   // lanes a cell in the BesselProduct draws (phase B), and a draw in the
   // ExpCos fills (phase C, two draws a cell); the first item of this lane
   // in each phase, fixed for the launch: its cell in A (its own), B, C and
@@ -301,13 +519,9 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
   const Cell cC = cell_at(kC < n ? kC : (kC < 2 * n ? kC - n : 0), Mxc,
                           Mtc, a.seed1);
   const Cell cD = cell_at(kD < n ? kD : 0, Mxc, Mtc, a.seed1);
-  // the warp design's coarse links and plaquettes of this lane
-  LaneLinks ll;
-  LanePlaq pl;
-  if constexpr (kWarp) {
-    ll = lane_links(lt, G, Mxc, Mtc, a.seed1);
-    pl = lane_plaq(kD, P, Mxc, Mtc);
-  }
+  // the coarse links and plaquettes of this lane
+  const LaneLinks ll = lane_links(lt, G, Mxc, Mtc, a.seed1);
+  const LanePlaq pl = lane_plaq(kD, P, Mxc, Mtc);
 
   for (int s = 0; s < a.n_steps; ++s) {
     const uint32_t base = (uint32_t)s * (uint32_t)(a.t_sub + 1);
@@ -315,41 +529,25 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
     // ---- t_sub coarse heat-bath sweeps + per-sweep traces ----
     for (int t = 0; t < a.t_sub; ++t) {
       float v[2];
-      if constexpr (kWarp) {
-        sweep_step_warp(Tc, Xc, ll, cw, base + (uint32_t)t, a.beta_c,
-                        a.n_overrelax_c, a.n_heatbath_c, a.k_rej);
-        plaquette_sums_warp(Tc, Xc, pl, &v[0], &v[1]);
-      } else {
-        sweep_step_block(Tc, Xc, Mxc, Mtc, lt, G, a.seed1, cw,
-                         base + (uint32_t)t, a.beta_c, a.n_overrelax_c,
-                         a.n_heatbath_c, a.k_rej);
-        plaquette_sums(Tc, Xc, Mxc, Mtc, lt, P, &v[0], &v[1]);
-      }
-      chain_reduce<kWarp>(v, red, G, P);
+      sweep_step_warp(f.Tc, f.Xc, ll, cw, base + (uint32_t)t, a.beta_c,
+                      a.n_overrelax_c, a.n_heatbath_c, a.k_rej);
+      plaquette_sums_warp(Tc, Xc, pl, &v[0], &v[1]);
+      warp_reduce(v, P);
       if (valid && lt == 0) {
         const size_t o = (size_t)(s * a.t_sub + t) * a.C + chain;
         qc_out[o] = v[0];
         ec_out[o] = v[1];
       }
-      chain_sync<kWarp>();
+      __syncwarp();
     }
     const uint32_t stp = base + (uint32_t)a.t_sub;
     bool failed = false;
     // ---- A: prolongate + perimeter randomisation; restrict(current) ----
     for (int k = lt; k < n; k += G) {
       const Cell cl = k == lt ? cA : cell_at(k, Mxc, Mtc, a.seed1);
-      const int c = cl.c;
-      const StreamUniform uni{step_base(cl.h, stp), cw};
-      const float u_t = PI_F * (2.0f * uni(1u) - 1.0f);
-      const float u_x = PI_F * (2.0f * uni(2u) - 1.0f);
-      Tr[T00 * n + c] = mod_2pi(0.5f * Tc[c] + u_t);
-      Tr[T01 * n + c] = mod_2pi(0.5f * Tc[c] - u_t);
-      Tr[X00 * n + c] = mod_2pi(0.5f * Xc[c] + u_x);
-      Tr[X10 * n + c] = mod_2pi(0.5f * Xc[c] - u_x);
-      Rc[c] = mod_2pi(F[T00 * n + c] + F[T01 * n + c]);
-      Rc[n + c] = mod_2pi(F[X00 * n + c] + F[X10 * n + c]);
+      perimeter_fill(f, n, cl.c, StreamUniform{step_base(cl.h, stp), cw});
     }
-    chain_sync<kWarp>();
+    __syncwarp();
 
     // ---- B: interior vertical links (sum from BesselProduct), W_b lanes
     // a cell running its rounds ahead ----
@@ -359,13 +557,9 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
       const bool active = k < n;
       const Cell cl =
           k0 == 0 ? cB : cell_at(active ? k : 0, Mxc, Mtc, a.seed1);
-      const int c = cl.c;
       const StreamUniform uni{step_base(cl.h, stp), cw};
-      const float t00 = Tr[T00 * n + c], t01 = Tr[T01 * n + c];
-      const float x00 = Tr[X00 * n + c], x10 = Tr[X10 * n + c];
-      const float theta_p = mod_2pi(t01 + Tr[X00 * n + cl.r] +
-                                    Tr[X10 * n + cl.r] - Tr[T01 * n + cl.d]);
-      const float theta_m = mod_2pi(x00 + x10 + Tr[T00 * n + cl.d] - t00);
+      float theta_p, theta_m;
+      vertical_staples(Tr, n, cl, &theta_p, &theta_m);
       float tt;
       if (a.exact) {
         const BesselSetup bs = bessel_setup(theta_p, theta_m, a);
@@ -380,13 +574,9 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
       } else {
         tt = approx_bessel_draw(uni, 2u, theta_p, theta_m, a.beta);
       }
-      if (active && q_b == 0) {
-        const float u = PI_F * (2.0f * uni(ctr_u) - 1.0f);
-        Tr[X01 * n + c] = mod_2pi(0.5f * tt + u);
-        Tr[X11 * n + c] = mod_2pi(0.5f * tt - u);
-      }
+      if (active && q_b == 0) vertical_split(Tr, n, cl.c, tt, uni, ctr.u);
     }
-    chain_sync<kWarp>();
+    __syncwarp();
 
     // ---- C: interior horizontal links from ExpCos: draw d < n is cell
     // d's T10, draw d >= n cell d - n's T11, W_e lanes a draw ----
@@ -397,23 +587,13 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
       const Cell cl = d0 == 0 ? cC
                               : cell_at(!active ? 0 : (odd ? d - n : d), Mxc,
                                         Mtc, a.seed1);
-      const int c = cl.c;
       const StreamUniform uni{step_base(cl.h, stp), cw};
       float tp, tm;
-      if (!odd) {
-        tp = mod_2pi(Tr[T00 * n + c] + Tr[X01 * n + c] - Tr[X00 * n + c]);
-        tm = mod_2pi(Tr[X10 * n + c] + Tr[T00 * n + cl.d] -
-                     Tr[X11 * n + c]);
-      } else {
-        tp = mod_2pi(Tr[T01 * n + c] + Tr[X00 * n + cl.r] -
-                     Tr[X01 * n + c]);
-        tm = mod_2pi(Tr[X11 * n + c] + Tr[T01 * n + cl.d] -
-                     Tr[X10 * n + cl.r]);
-      }
+      horizontal_staples(Tr, n, cl, odd, &tp, &tm);
       float tau, shift;
       expcos_shift(tp, tm, a.beta, &tau, &shift);
       const float sigma = expcos_sigma(tau);
-      const uint32_t ctr0 = odd ? ctr_o : ctr_e;
+      const uint32_t ctr0 = odd ? ctr.o : ctr.e;
       const auto round = [&](int r, float* prop) {
         return expcos_round(uni, ctr0, r, tau, sigma, prop);
       };
@@ -422,20 +602,16 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
           active)
         failed = true;
       if (active && q_e == 0)
-        Tr[(odd ? T11 : T10) * n + c] = mod_2pi(x + shift);
+        Tr[(odd ? T11 : T10) * n + cl.c] = mod_2pi(x + shift);
     }
     // a cell whose truncated rejection found no draw force-rejects
-    bool any_failed;
-    if constexpr (kWarp) {
-      any_failed = (__ballot_sync(0xffffffffu, failed) & chain_mask) != 0u;
-    } else {
-      any_failed = __syncthreads_or(failed) != 0;
-    }
-    chain_sync<kWarp>();
+    const bool any_failed =
+        (__ballot_sync(0xffffffffu, failed) & chain_mask) != 0u;
+    __syncwarp();
 
     // ---- D: the three dS terms ----
     float v[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (kWarp && a.exact && 2 * P <= G) {
+    if (a.exact && 2 * P <= G) {
       // twice the lanes the cells need: lanes l and l + P share cell
       // l's cosines, each taking one of every pair in the same instruction
       // and the other by a shuffle, then both add them in the reference
@@ -455,6 +631,7 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
       const float P01 = t01 + sx00 - t11 - x01;
       const float P10 = t10 + x11 - st00 - x10;
       const float P11 = t11 + sx10 - st01 - x11;
+      const float* Rc = f.Rc;
       const float Pr = Rc[c] + Rc[n + cl.r] - Rc[cl.d] - Rc[n + c];
       const float Pc = Tc[c] + Xc[cl.r] - Tc[cl.d] - Xc[c];
       const float phi_12 = x10 + st00;
@@ -493,111 +670,38 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
         v[4] += logf(series);
       }
     } else {
-      for (int k = kD; k < n; k += P) {
-        const Cell cl = k == kD ? cD : cell_at(k, Mxc, Mtc, a.seed1);
-        const int c = cl.c;
-        const float t00 = Tr[T00 * n + c], t01 = Tr[T01 * n + c];
-        const float t10 = Tr[T10 * n + c], t11 = Tr[T11 * n + c];
-        const float x00 = Tr[X00 * n + c], x01 = Tr[X01 * n + c];
-        const float x10 = Tr[X10 * n + c], x11 = Tr[X11 * n + c];
-        const float sx00 = Tr[X00 * n + cl.r];
-        const float sx10 = Tr[X10 * n + cl.r];
-        const float st00 = Tr[T00 * n + cl.d];
-        const float st01 = Tr[T01 * n + cl.d];
-        // s_fine of the trial: the four sub-plaquettes of the cell
-        const float P00 = t00 + x01 - t10 - x00;
-        const float P01 = t01 + sx00 - t11 - x01;
-        const float P10 = t10 + x11 - st00 - x10;
-        const float P11 = t11 + sx10 - st01 - x11;
-        v[0] += (1.0f - cosf(P00)) + (1.0f - cosf(P01)) +
-                (1.0f - cosf(P10)) + (1.0f - cosf(P11));
-        // s_coarse of restrict(current) and of the coarse state
-        const float Pr = Rc[c] + Rc[n + cl.r] - Rc[cl.d] - Rc[n + c];
-        const float Pc = Tc[c] + Xc[cl.r] - Tc[cl.d] - Xc[c];
-        v[1] += 1.0f - cosf(Pr);
-        v[2] += 1.0f - cosf(Pc);
-        if (a.exact) {
-          // s_cond: plaquette staples + log of the normalisation series
-          const float phi_12 = x10 + st00;
-          const float phi_23 = st01 - sx10;
-          const float phi_34 = -t01 - sx00;
-          const float phi_41 = -t00 + x00;
-          const float th_1 = t10, th_2 = -x11, th_3 = -t11, th_4 = x01;
-          const float Phi = phi_12 + phi_23 + phi_34 + phi_41;
-          v[3] += cosf(th_1 - th_2 - phi_12) + cosf(th_2 - th_3 - phi_23) +
-                  cosf(th_3 - th_4 - phi_34) + cosf(th_4 - th_1 - phi_41);
-          float series = 1.0f;
-          for (int m = 0; m < a.n_alpha; ++m)
-            series = series + alphas[m] * cosf((float)(m + 1) * Phi);
-          v[4] += logf(series);
-        } else {
-          // s_cond_approx: vertical-sum mixture + horizontal ExpCos terms
-          const float theta_p = mod_2pi(t01 + sx00 + sx10 - st01);
-          const float theta_m = mod_2pi(x00 + x10 + st00 - t00);
-          const float th_v = mod_2pi(x01 + x11);
-          v[3] += approx_log_eval(th_v, theta_p, theta_m, a.beta);
-          const float tp_e = mod_2pi(t00 + x01 - x00);
-          const float tm_e = mod_2pi(x10 + st00 - x11);
-          const float tp_o = mod_2pi(t01 + sx00 - x01);
-          const float tm_o = mod_2pi(x11 + st01 - sx10);
-          v[4] += expcos_log_eval(t10, a.beta, tp_e, tm_e) +
-                  expcos_log_eval(t11, a.beta, tp_o, tm_o);
-        }
-      }
+      for (int k = kD; k < n; k += P)
+        ds_terms(f, n, k == kD ? cD : cell_at(k, Mxc, Mtc, a.seed1), a,
+                 alphas, v);
     }
-    chain_reduce<kWarp>(v, red, G, P);
-    const float S_f_trial = a.beta * v[0];
-    const float dS_coarse = a.beta_c * v[1] - a.beta_c * v[2];
-    const float S_q_trial = a.exact ? -a.beta * v[3] + v[4] : -v[3] - v[4];
-    const float dS = (S_f_trial - S_f) + dS_coarse + (S_q - S_q_trial);
-    const StreamUniform uni0{step_base(site_hash(a.seed1, 0u), stp), cw};
-    const float u_acc = uni0(ctr_acc);
-    const bool accept = !any_failed && (dS < 0.0f || u_acc < expf(-dS));
-    if (accept) {
+    warp_reduce(v, P);
+    const TrialTest tr = trial_test(v, S_f, S_q, any_failed, a, cw, stp,
+                                    ctr.acc);
+    if (tr.accept) {
       for (int c = lt; c < n; c += G)
-        for (int k = 0; k < 8; ++k) F[k * n + c] = Tr[k * n + c];
-      S_f = S_f_trial;
-      S_q = S_q_trial;
+        for (int k = 0; k < 8; ++k) f.F[k * n + c] = Tr[k * n + c];
+      S_f = tr.S_f;
+      S_q = tr.S_q;
     }
-    chain_sync<kWarp>();
+    __syncwarp();
 
     // ---- E: Y = (Q_f^2 - Q_c^2) / 4 pi^2 ----
     float w[2] = {0.0f, 0.0f};
-    for (int k = kD; k < n; k += P) {
-      const Cell cl = k == kD ? cD : cell_at(k, Mxc, Mtc, a.seed1);
-      const int c = cl.c;
-      const float t00 = F[T00 * n + c], t01 = F[T01 * n + c];
-      const float t10 = F[T10 * n + c], t11 = F[T11 * n + c];
-      const float x00 = F[X00 * n + c], x01 = F[X01 * n + c];
-      const float x10 = F[X10 * n + c], x11 = F[X11 * n + c];
-      w[0] += mod_2pi(t00 + x01 - t10 - x00) +
-              mod_2pi(t01 + F[X00 * n + cl.r] - t11 - x01) +
-              mod_2pi(t10 + x11 - F[T00 * n + cl.d] - x10) +
-              mod_2pi(t11 + F[X10 * n + cl.r] - F[T01 * n + cl.d] - x11);
-      w[1] += mod_2pi(Tc[c] + Xc[cl.r] - Tc[cl.d] - Xc[c]);
-    }
-    chain_reduce<kWarp>(w, red, G, P);
+    for (int k = kD; k < n; k += P)
+      charge_terms(f.F, Tc, Xc, n,
+                   k == kD ? cD : cell_at(k, Mxc, Mtc, a.seed1), w);
+    warp_reduce(w, P);
     if (valid && lt == 0) {
       y_out[(size_t)s * a.C + chain] =
           FOURPI2_INV_F * (w[0] * w[0] - w[1] * w[1]);
-      acc_out[(size_t)s * a.C + chain] = accept ? 1.0f : 0.0f;
+      acc_out[(size_t)s * a.C + chain] = tr.accept ? 1.0f : 0.0f;
     }
     // the next step's sweeps write the coarse links E read
-    chain_sync<kWarp>();
+    __syncwarp();
   }
 
   if (valid) {
-    for (int c = lt; c < n; c += G) {
-      const int J = c / Mtc, I = c - (c / Mtc) * Mtc;
-      for (int k = 0; k < 8; ++k) {
-        const int mu = k >> 2, ja = (k >> 1) & 1, ib = k & 1;
-        fine_out[(size_t)chain * 8 * n +
-                 (size_t)(((2 * J + ja) * Mt + 2 * I + ib) * 2 + mu)] =
-            F[k * n + c];
-      }
-      coarse_out[(size_t)chain * 2 * n + 2 * c] = Tc[c];
-      coarse_out[(size_t)chain * 2 * n + 2 * c + 1] = Xc[c];
-    }
+    store_fields(f, fine_out, coarse_out, chain, Mtc, n, lt, G);
     if (lt == 0) {
       sf_out[chain] = S_f;
       sq_out[chain] = S_q;
@@ -605,11 +709,244 @@ __global__ void __launch_bounds__(kWarp ? 128 : 1024)
   }
 }
 
-template <bool kWarp>
-cudaError_t allow_twolevel_smem(size_t smem) {
+// team_sum's slot of phase D: the dS terms of the cells sl, sl + P, ...
+struct DsSlot {
+  const TwoLevelSlice& f;
+  const TwoLevelArgs& a;
+  const float* alphas;
+  int P;
+
+  __device__ __forceinline__ void operator()(int sl, float (&v)[5]) const {
+    const int n = a.Mxc * a.Mtc;
+    GridWalk w(sl, P, a.Mtc);
+    for (int k = sl; k < n; k += P, w.next())
+      ds_terms(f, n, cell_of(w.r, w.c, a.Mxc, a.Mtc, 0u), a, alphas, v);
+  }
+};
+
+// team_sum's slot of phase E: the charges of the cells sl, sl + P, ...
+struct ChargeSlot {
+  const float* Fs;
+  const TwoLevelSlice& f;
+  const TwoLevelArgs& a;
+  int P;
+
+  __device__ __forceinline__ void operator()(int sl, float (&w)[2]) const {
+    const int n = a.Mxc * a.Mtc;
+    GridWalk wk(sl, P, a.Mtc);
+    for (int k = sl; k < n; k += P, wk.next())
+      charge_terms(Fs, f.Tc, f.Xc, n, cell_of(wk.r, wk.c, a.Mxc, a.Mtc, 0u),
+                   w);
+  }
+};
+
+// The block design (coarse grids beyond 64 cells): a chain on a team of G
+// threads, a block a chain (schwinger_sweep.cuh, the block design).  A
+// thread takes the cells lt, lt + G, ... in phases A, B and C, walked
+// without a division; its BesselProduct draws (B) and the two ExpCos
+// draws of each of its cells (C, independent: neither reads T10 or T11)
+// run their rejection rounds interleaved; the coarse traces and the D and
+// E sums add in the order of the one-cell-a-thread tree (team_sum, one
+// barrier each).  E reads the state the step ends in (the trial where it
+// was accepted, beside its copy to F), so no barrier waits for the copy.
+__global__ void __launch_bounds__(1024)
+    schwinger_twolevel_team_kernel(
+        const float* __restrict__ fine_in,
+        const float* __restrict__ coarse_in,
+        const float* __restrict__ sf_in, const float* __restrict__ sq_in,
+        float* __restrict__ fine_out, float* __restrict__ coarse_out,
+        float* __restrict__ sf_out, float* __restrict__ sq_out,
+        float* __restrict__ y_out, float* __restrict__ qc_out,
+        float* __restrict__ ec_out, float* __restrict__ acc_out,
+        const float* __restrict__ alphas, TwoLevelArgs a) {
+  extern __shared__ float smem[];
+  const int Mxc = a.Mxc, Mtc = a.Mtc;
+  const int n = Mxc * Mtc;
+  const int G = a.lanes;
+  const int lt = threadIdx.x;
+  const int chain = blockIdx.x;
+  const bool valid = chain < a.C;
+  const TwoLevelSlice f = twolevel_slice(smem, n);
+  float* Tr = f.Tr;
+  float* red = smem + TWOLEVEL_WORDS + 20 * n;
+  // the sums' slots: the threads a chain of the one-cell-a-thread tree
+  const int P = min(1024, pow2_ceil(n));
+  int rb = 0;  // team_sum's buffer
+
+  const ChainWords cw =
+      chain_words(reinterpret_cast<uint32_t*>(smem), TWOLEVEL_WORDS, a.seed2,
+                  a.chain0 + (uint32_t)chain, lt, G);
+  load_fields(f, fine_in, coarse_in, chain, valid, Mtc, n, lt, G);
+  float S_f = valid ? sf_in[chain] : 0.0f;
+  float S_q = valid ? sq_in[chain] : 0.0f;
+  __syncthreads();
+  const FillCounters ctr = fill_counters(a);
+
+  for (int s = 0; s < a.n_steps; ++s) {
+    const uint32_t base = (uint32_t)s * (uint32_t)(a.t_sub + 1);
+
+    // ---- t_sub coarse heat-bath sweeps + per-sweep traces ----
+    for (int t = 0; t < a.t_sub; ++t) {
+      sweep_step_team(f.Tc, f.Xc, Mxc, Mtc, lt, G, a.seed1, cw,
+                      base + (uint32_t)t, a.beta_c, a.n_overrelax_c,
+                      a.n_heatbath_c, a.k_rej);
+      float v[2];
+      team_sum(v, red, rb, lt, G, P,
+               PlaquetteSlot{f.Tc, f.Xc, Mxc, Mtc, P});
+      if (valid && lt == 0) {
+        const size_t o = (size_t)(s * a.t_sub + t) * a.C + chain;
+        qc_out[o] = v[0];
+        ec_out[o] = v[1];
+      }
+    }
+    const uint32_t stp = base + (uint32_t)a.t_sub;
+    bool failed = false;
+    // ---- A: prolongate + perimeter randomisation; restrict(current) ----
+    {
+      GridWalk w(lt, G, Mtc);
+      for (int k = lt; k < n; k += G, w.next()) {
+        const Cell cl = cell_of(w.r, w.c, Mxc, Mtc, a.seed1);
+        perimeter_fill(f, n, cl.c, StreamUniform{step_base(cl.h, stp), cw});
+      }
+    }
+    __syncthreads();
+
+    // ---- B: interior vertical links (sum from BesselProduct) ----
+    if (a.exact) {
+      // the thread's cells one round at a time
+      GridWalk w(lt, G, Mtc);
+      int k = lt, r = 0;
+      Cell cl{};
+      float theta_p = 0.0f;
+      BesselSetup bs{};
+      uint32_t base_s = 0u;
+      bool fresh = true;  // at a new cell
+      while (k < n) {
+        if (fresh) {
+          cl = cell_of(w.r, w.c, Mxc, Mtc, a.seed1);
+          float theta_m;
+          vertical_staples(Tr, n, cl, &theta_p, &theta_m);
+          bs = bessel_setup(theta_p, theta_m, a);
+          base_s = step_base(cl.h, stp);
+          r = 0;
+          fresh = false;
+        }
+        const StreamUniform uni{base_s, cw};
+        float prop = 0.0f;
+        const bool ok =
+            r < a.k_rej_bessel && bessel_round(uni, 2u, r, bs, a, &prop);
+        if (ok || ++r >= a.k_rej_bessel) {
+          if (!ok) failed = true;
+          vertical_split(Tr, n, cl.c,
+                         mod_2pi(bs.sign * (ok ? prop : 0.0f) + theta_p),
+                         uni, ctr.u);
+          k += G;
+          w.next();
+          fresh = true;
+        }
+      }
+    } else {
+      GridWalk w(lt, G, Mtc);
+      for (int k = lt; k < n; k += G, w.next()) {
+        const Cell cl = cell_of(w.r, w.c, Mxc, Mtc, a.seed1);
+        const StreamUniform uni{step_base(cl.h, stp), cw};
+        float theta_p, theta_m;
+        vertical_staples(Tr, n, cl, &theta_p, &theta_m);
+        vertical_split(Tr, n, cl.c,
+                       approx_bessel_draw(uni, 2u, theta_p, theta_m, a.beta),
+                       uni, ctr.u);
+      }
+    }
+    __syncthreads();
+
+    // ---- C: interior horizontal links from ExpCos: the T10 (even) and
+    // T11 (odd) draws of each of the thread's cells, one round at a time
+    {
+      GridWalk w(lt, G, Mtc);
+      int k = lt, r = 0;
+      bool odd = false, fresh = true;
+      Cell cl{};
+      float tau = 0.0f, shift = 0.0f, sigma = 0.0f;
+      uint32_t base_s = 0u;
+      while (k < n) {
+        if (fresh) {
+          if (!odd) {
+            cl = cell_of(w.r, w.c, Mxc, Mtc, a.seed1);
+            base_s = step_base(cl.h, stp);
+          }
+          float tp, tm;
+          horizontal_staples(Tr, n, cl, odd, &tp, &tm);
+          expcos_shift(tp, tm, a.beta, &tau, &shift);
+          sigma = expcos_sigma(tau);
+          r = 0;
+          fresh = false;
+        }
+        float prop = 0.0f;
+        const bool ok = r < a.k_rej_fill &&
+                        expcos_round(StreamUniform{base_s, cw},
+                                     odd ? ctr.o : ctr.e, r, tau, sigma,
+                                     &prop);
+        if (ok || ++r >= a.k_rej_fill) {
+          if (!ok) failed = true;
+          Tr[(odd ? T11 : T10) * n + cl.c] =
+              mod_2pi((ok ? prop : 0.0f) + shift);
+          if (odd) {
+            k += G;
+            w.next();
+          }
+          odd = !odd;
+          fresh = true;
+        }
+      }
+    }
+    // a cell whose truncated rejection found no draw force-rejects
+    const bool any_failed = __syncthreads_or(failed) != 0;
+
+    // ---- D: the three dS terms ----
+    float v[5];
+    team_sum(v, red, rb, lt, G, P, DsSlot{f, a, alphas, P});
+    const TrialTest tr = trial_test(v, S_f, S_q, any_failed, a, cw, stp,
+                                    ctr.acc);
+    if (tr.accept) {
+      for (int c = lt; c < n; c += G)
+        for (int k = 0; k < 8; ++k) f.F[k * n + c] = Tr[k * n + c];
+      S_f = tr.S_f;
+      S_q = tr.S_q;
+    }
+
+    // ---- E: Y = (Q_f^2 - Q_c^2) / 4 pi^2 ----
+    float w[2];
+    team_sum(w, red, rb, lt, G, P,
+             ChargeSlot{tr.accept ? Tr : f.F, f, a, P});
+    if (valid && lt == 0) {
+      y_out[(size_t)s * a.C + chain] =
+          FOURPI2_INV_F * (w[0] * w[0] - w[1] * w[1]);
+      acc_out[(size_t)s * a.C + chain] = tr.accept ? 1.0f : 0.0f;
+    }
+  }
+
+  if (valid) {
+    store_fields(f, fine_out, coarse_out, chain, Mtc, n, lt, G);
+    if (lt == 0) {
+      sf_out[chain] = S_f;
+      sq_out[chain] = S_q;
+    }
+  }
+}
+
+// the kernel of a launch of G lanes a chain: the warp design up to 32
+using TwoLevelKernel = void (*)(const float*, const float*, const float*,
+                                const float*, float*, float*, float*, float*,
+                                float*, float*, float*, float*, const float*,
+                                TwoLevelArgs);
+
+inline TwoLevelKernel twolevel_kernel(bool warp) {
+  return warp ? schwinger_twolevel_kernel : schwinger_twolevel_team_kernel;
+}
+
+inline cudaError_t allow_twolevel_smem(TwoLevelKernel k, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(schwinger_twolevel_kernel<kWarp>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
@@ -619,10 +956,10 @@ cudaError_t allow_twolevel_smem(size_t smem) {
 // Pallas kernel: fine', coarse', S_fine', S_cond', y [n_steps, C],
 // qc/ec [n_steps*t_sub, C], acc [n_steps, C]; all f32, inputs and outputs
 // distinct.  alphas: n_alpha rescaled series coefficients (exact branch).
-// lanes per chain (a power of two: <= 32 the warp design, else the block's
-// threads), cpb chains per block, smem bytes of dynamic shared memory.
-// chain0: the global index of the launch's chain 0, which the chain words
-// hash.
+// lanes per chain (a power of two: <= 32 the warp design, else the team of
+// the block design, schwinger_sweep.cuh team_layout_ok), cpb chains per
+// block, smem bytes of dynamic shared memory.  chain0: the global index of
+// the launch's chain 0, which the chain words hash.
 extern "C" int mlmc_schwinger_twolevel(
     const float* fine_in, const float* coarse_in, const float* sf_in,
     const float* sq_in, float* fine_out, float* coarse_out, float* sf_out,
@@ -639,23 +976,14 @@ extern "C" int mlmc_schwinger_twolevel(
                        n_alpha,    beta,         beta_c,       2.0f * beta,
                        two_L,      sigma_beta,   sigma_half,   seed1,
                        seed2,      chain0,       lanes,        cpb};
-  const int blocks = (C + cpb - 1) / cpb;
-  cudaError_t e;
-  if (lanes <= 32) {
-    e = mlmc::allow_twolevel_smem<true>(smem);
-    if (e != cudaSuccess) return (int)e;
-    mlmc::schwinger_twolevel_kernel<true><<<blocks, lanes * cpb, smem,
-                                            (cudaStream_t)stream>>>(
-        fine_in, coarse_in, sf_in, sq_in, fine_out, coarse_out, sf_out,
-        sq_out, y, qc, ec, acc, alphas, a);
-  } else {
-    e = mlmc::allow_twolevel_smem<false>(smem);
-    if (e != cudaSuccess) return (int)e;
-    mlmc::schwinger_twolevel_kernel<false><<<blocks, lanes * cpb, smem,
-                                             (cudaStream_t)stream>>>(
-        fine_in, coarse_in, sf_in, sq_in, fine_out, coarse_out, sf_out,
-        sq_out, y, qc, ec, acc, alphas, a);
-  }
+  if (lanes > 32 && !mlmc::team_layout_ok(lanes, cpb, (Mx / 2) * (Mt / 2)))
+    return (int)cudaErrorInvalidValue;
+  const mlmc::TwoLevelKernel k = mlmc::twolevel_kernel(lanes <= 32);
+  const cudaError_t e = mlmc::allow_twolevel_smem(k, smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<(C + cpb - 1) / cpb, lanes * cpb, smem, (cudaStream_t)stream>>>(
+      fine_in, coarse_in, sf_in, sq_in, fine_out, coarse_out, sf_out, sq_out,
+      y, qc, ec, acc, alphas, a);
   return (int)cudaGetLastError();
 }
 
@@ -664,21 +992,13 @@ extern "C" int mlmc_schwinger_twolevel(
 // when warp != 0): out[0..2].
 extern "C" int mlmc_schwinger_twolevel_attrs(int threads, size_t smem,
                                              int warp, int* out) {
+  const mlmc::TwoLevelKernel k = mlmc::twolevel_kernel(warp != 0);
   cudaFuncAttributes fa{};
-  cudaError_t e;
-  if (warp) {
-    e = cudaFuncGetAttributes(&fa, mlmc::schwinger_twolevel_kernel<true>);
-    if (e == cudaSuccess) e = mlmc::allow_twolevel_smem<true>(smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &out[2], mlmc::schwinger_twolevel_kernel<true>, threads, smem);
-  } else {
-    e = cudaFuncGetAttributes(&fa, mlmc::schwinger_twolevel_kernel<false>);
-    if (e == cudaSuccess) e = mlmc::allow_twolevel_smem<false>(smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &out[2], mlmc::schwinger_twolevel_kernel<false>, threads, smem);
-  }
+  cudaError_t e = cudaFuncGetAttributes(&fa, k);
+  if (e == cudaSuccess) e = mlmc::allow_twolevel_smem(k, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], k, threads,
+                                                      smem);
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
   return (int)e;

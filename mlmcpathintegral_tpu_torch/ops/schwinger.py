@@ -206,32 +206,89 @@ def warp_lanes(Mx: int, Mt: int):
     return lanes
 
 
+#: the block design (csrc/schwinger_sweep.cuh): the fewest threads a
+#: chain (two warps; a share of one warp is the warp design's) and the most
+#: (half an SM's resident threads: a team of 1024 holds an SM alone, and
+#: each of its barriers idles it), the slots a thread sums at most
+#: (TEAM_SLOTS), the threads an SM keeps resident at the kernels' 64
+#: registers a thread (65 536 / 64, __launch_bounds__(1024)), an SM's
+#: shared memory and what each block reserves of it, and the SMs of the
+#: card the layouts are planned for (an H100)
+TEAM_THREADS_MIN = 64
+TEAM_THREADS_MAX = 512
+TEAM_SLOTS = 8
+SM_THREADS = 1024
+SM_SMEM = 233_472
+BLOCK_SMEM_RESERVED = 1024
+H100_SMS = 132
+
+
+def team_slots(n_items: int) -> int:
+    """The slots the block design's sums add over, in the order of the
+    one-item-a-thread tree: min(1024, next_pow2(n_items)), the threads a
+    chain of the block design before the team."""
+    return min(1024, _cuda.next_pow2(n_items))
+
+
+def block_threads(n_items: int, n_chains: int | None, smem_of) -> int:
+    """Threads a chain of the block design for chains of ``n_items`` sites
+    or cells: ``team_slots``, at most TEAM_THREADS_MAX, while an SM holds
+    one chain of the launch, else halved while the chains an SM must hold
+    for one wave, as far as its shared memory holds them
+    (``smem_of(threads)``: a block's bytes), would need more than
+    SM_THREADS threads; never below TEAM_THREADS_MIN or the slots /
+    TEAM_SLOTS.  With no chain count: ``team_slots``, the threads a chain
+    whose block bytes decide whether a field fits (as before the team)."""
+    P = team_slots(n_items)
+    if n_chains is None:
+        return P
+    G = min(P, TEAM_THREADS_MAX)
+    per_sm = -(-n_chains // H100_SMS)
+    least = max(TEAM_THREADS_MIN, P // TEAM_SLOTS)
+    while G > least:
+        fit = SM_SMEM // (smem_of(G) + BLOCK_SMEM_RESERVED)
+        if G * min(per_sm, max(fit, 1)) <= SM_THREADS:
+            break
+        G //= 2
+    return G
+
+
 def sweep_smem_bytes(Mt: int, Mx: int, n_chains: int | None = None):
     """(lanes per chain, chains per block, dynamic shared bytes) of the
     sweep kernel's launch with the fields in shared memory: the warp
     design (``warp_lanes``) up to WARP_SITES_MAX sites, a chain on a warp
     or on an aligned share of one, up to four warps a block; a larger field
-    on a whole block, one site a thread (up to 1024); each chain with its
-    SWEEP_WORDS-word table, the block's Q/E scratch beside them."""
+    on the block design, a chain a block on ``block_threads`` threads;
+    each chain with its SWEEP_WORDS-word table, beside it the block's Q/E
+    scratch (2 floats a thread)."""
     nsites = Mx * Mt
     if warp_lanes(Mx, Mt) is not None:
         lanes, cpb = _cuda.warp_chains(2 * nsites, n_chains)
         return lanes, cpb, 4 * cpb * (SWEEP_WORDS + 2 * nsites)
-    tpc, _ = _cuda.block_layout(nsites)
-    return tpc, 1, 4 * (SWEEP_WORDS + 2 * nsites + 2 * tpc)
+
+    def smem_of(G):
+        return 4 * (SWEEP_WORDS + 2 * nsites + 2 * G)
+    G = block_threads(nsites, n_chains, smem_of)
+    return G, 1, smem_of(G)
 
 
 def sweep_launch(Mt: int, Mx: int, n_chains: int, smem_limit: int):
     """(lanes per chain, chains per block, dynamic shared bytes, branch) of
     the sweep kernel's launch on a device that lets a block opt in to
-    ``smem_limit`` bytes.  branch: "warp" (the warp design), "block" (a
-    chain a block, the field in shared memory) or "global" (a field beyond
-    shared memory in a global scratch buffer, a chain a block, with only
-    the word table and the Q/E scratch in shared memory)."""
+    ``smem_limit`` bytes.  branch: "warp" (the warp design), "block" (the
+    block design, the field in shared memory) or "global" (a field beyond
+    shared memory in a global scratch buffer, a chain a block on
+    ``team_slots`` threads, with only the word table and the Q/E scratch in
+    shared memory).  Whether a field fits is decided at ``team_slots``
+    threads, so the block branch takes the fields it took before the
+    team."""
     lanes, cpb, smem = sweep_smem_bytes(Mt, Mx, n_chains)
-    if smem <= smem_limit:
-        return lanes, cpb, smem, "warp" if lanes <= 32 else "block"
-    return lanes, 1, 4 * (SWEEP_WORDS + 2 * lanes), "global"
+    if lanes <= 32 and smem <= smem_limit:
+        return lanes, cpb, smem, "warp"
+    if lanes > 32 and sweep_smem_bytes(Mt, Mx)[2] <= smem_limit:
+        return lanes, cpb, smem, "block"
+    P = team_slots(Mx * Mt)
+    return P, 1, 4 * (SWEEP_WORDS + 2 * P), "global"
 
 
 def sweep_attrs(Mt: int, Mx: int, n_chains: int):

@@ -33,7 +33,7 @@ from mlmcpathintegral_tpu_torch.ops.rng import (
 )
 from mlmcpathintegral_tpu_torch.ops.schwinger import (
     TWOLEVEL_WORDS, _expcos_rejection, _expcos_shift, _first_accepted,
-    _mod_2pi, _one_step, warp_lanes,
+    _mod_2pi, _one_step, block_threads, warp_lanes,
 )
 
 PI = math.pi
@@ -466,24 +466,29 @@ def twolevel_smem_bytes(Mt: int, Mx: int, n_chains: int | None = None):
     two-level kernel's launch: the warp design (``schwinger.warp_lanes`` of
     the coarse grid, up to WARP_SITES_MAX coarse cells), a chain on a warp
     or on an aligned share of one, two lanes a cell, up to four warps a
-    block; a larger field on a whole block, one cell a thread; per chain 20
-    floats a coarse cell and the TWOLEVEL_WORDS-word table, in a block the
-    5-value reduction scratch beside them."""
+    block; a larger field on the block design, a chain a block on
+    ``schwinger.block_threads`` threads; per chain 20 floats a coarse cell
+    and the TWOLEVEL_WORDS-word table, in a block the sums' scratch (5
+    floats a thread) beside them."""
     ncells = (Mx // 2) * (Mt // 2)
     per_chain = 4 * (TWOLEVEL_WORDS + 20 * ncells)
     if warp_lanes(Mx // 2, Mt // 2) is not None:
         lanes, cpb = _cuda.warp_chains(2 * ncells, n_chains)
         return lanes, cpb, cpb * per_chain
-    tpc, _ = _cuda.block_layout(ncells)
-    return tpc, 1, per_chain + 4 * 5 * tpc
+
+    def smem_of(G):
+        return per_chain + 4 * 5 * G
+    G = block_threads(ncells, n_chains, smem_of)
+    return G, 1, smem_of(G)
 
 
 def twolevel_launch(Mt: int, Mx: int, n_chains: int):
     """(lanes per chain, chains per block, dynamic shared bytes, branch) of
     the two-level kernel's launch: branch "warp" (the warp design) or
-    "block" (a chain a block).  The fields
-    always live in shared memory: ``MonteCarloMultiLevel`` runs a level
-    whose block does not fit unfused."""
+    "block" (the block design, a chain a block).  The fields always live
+    in shared memory: ``MonteCarloMultiLevel`` runs a level whose block
+    (at ``team_slots`` threads, ``twolevel_smem_bytes`` without a chain
+    count) does not fit unfused."""
     lanes, cpb, smem = twolevel_smem_bytes(Mt, Mx, n_chains)
     return lanes, cpb, smem, "warp" if lanes <= 32 else "block"
 

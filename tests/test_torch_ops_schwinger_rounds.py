@@ -216,6 +216,10 @@ def test_no_round_accepts():
 ])
 def test_sweep_launch_branches(Mx, Mt, n_chains, branch, lanes, cpb):
     got = tps.sweep_launch(Mt, Mx, n_chains, H100_SMEM_OPTIN)
+    # a block row's lanes: the threads a chain of the one-site-a-thread
+    # block, whose team takes at most TEAM_THREADS_MAX of them
+    if branch == "block":
+        lanes = min(lanes, tps.TEAM_THREADS_MAX)
     assert got[3] == branch and got[:2] == (lanes, cpb)
     nsites = Mx * Mt
     assert (tps.warp_lanes(Mx, Mt) is not None) == (branch == "warp")
@@ -247,6 +251,9 @@ def test_sweep_launch_branches(Mx, Mt, n_chains, branch, lanes, cpb):
 ])
 def test_twolevel_launch_branches(Mx, Mt, n_chains, branch, lanes, cpb):
     got = ttl.twolevel_launch(Mt, Mx, n_chains)
+    # a block row's lanes, as in test_sweep_launch_branches
+    if branch == "block":
+        lanes = min(lanes, tps.TEAM_THREADS_MAX)
     assert got[3] == branch and got[:2] == (lanes, cpb)
     assert got[:3] == ttl.twolevel_smem_bytes(Mt, Mx, n_chains)
     ncells = (Mx // 2) * (Mt // 2)
