@@ -20,6 +20,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "rng.cuh"
 
 namespace mlmc {
@@ -69,6 +71,56 @@ __device__ __forceinline__ bool expcos_round(const Uniform& uni,
                                              float sigma, float* prop) {
   return expcos_test(expcos_pre(uni, ctr0, r, !(tau < 0.45f)), tau, sigma,
                      prop);
+}
+
+// The counts of one rejection loop over a launch, added by the lane that
+// owns each draw: draws, rounds needed (the sequential loop's rounds: the
+// first accepting round + 1, or k when none accepts) and rounds evaluated
+// (each (draw, round) a lane drew and tested, so a round tried W at a time
+// after an earlier one accepted counts too).  The loops take a counter
+// class: NoCount keeps nothing and its calls compile away (an uncounted
+// kernel is the code it was); RegCount keeps a lane's counts in
+// registers.
+struct NoCount {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ void draw(int, int) {}
+};
+
+struct RegCount {
+  static constexpr bool kOn = true;
+  uint32_t c[3] = {0u, 0u, 0u};
+
+  __device__ __forceinline__ void draw(int rounds, int evaluated) {
+    c[0] += 1u;
+    c[1] += (uint32_t)rounds;
+    c[2] += (uint32_t)evaluated;
+  }
+  __device__ __forceinline__ uint32_t get(int k) const { return c[k]; }
+};
+
+// rounds evaluated by a draw whose W lanes ran its rounds W at a time
+// (rounds rb + q < k) until the batch that held round need - 1
+__device__ __forceinline__ int rounds_run(int need, int W, int k) {
+  return min((need + W - 1) & ~(W - 1), k);
+}
+
+// adds the warp's counts (draws, rounds needed, rounds evaluated) to
+// out[0..2] with one atomic each from lane 0; every lane of the warp calls
+// it, with zero counts where its chain lies past the launch's chains
+template <class Cnt>
+__device__ __forceinline__ void flush_counts(const Cnt& c, bool valid,
+                                             unsigned long long* out) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const uint32_t s = __reduce_add_sync(0xffffffffu, valid ? c.get(k) : 0u);
+    if ((threadIdx.x & 31) == 0) atomicAdd(out + k, (unsigned long long)s);
+  }
+}
+
+// the place + 1 of the first hit of a ballot in this lane's group of W
+// lanes: the rounds a draw needs is the batch's first round + this
+__device__ __forceinline__ int hit_in_group(unsigned hits, int W) {
+  return __ffs(hits) - ((threadIdx.x & 31) & ~(W - 1));
 }
 
 // Gaussian envelope width of the ExpCos rejection at tau
@@ -189,15 +241,19 @@ __device__ __forceinline__ int lanes_per_item(int G, int n) {
 // (lanes with no item pass active = false, W is the same for the whole
 // warp): each batch is one ballot and one shuffle for the warp, whichever
 // groups are still drawing, and the loop ends when every group is done.
-template <class Round>
+// cnt, where given, counts the loop: lane q = 0 of an active group owns
+// its draw.
+template <class Round, class Cnt = NoCount>
 __device__ __forceinline__ bool first_accepted(const Round& round, int k,
                                                int W, int q, bool active,
-                                               float* x) {
+                                               float* x,
+                                               Cnt* cnt = nullptr) {
   const int lane = threadIdx.x & 31;
   const unsigned group =
       W == 32 ? 0xffffffffu : ((1u << W) - 1u) << (lane & ~(W - 1));
   bool done = !active, acc = false;
   float res = 0.0f;
+  int need = k;  // counted: the rounds the draw needs
   for (int rb = 0; rb < k; rb += W) {
     float prop = 0.0f;
     const bool ok = !done && rb + q < k && round(rb + q, &prop);
@@ -210,8 +266,12 @@ __device__ __forceinline__ bool first_accepted(const Round& round, int k,
       res = first;
       acc = true;
       done = true;
+      if constexpr (Cnt::kOn) need = rb + hit_in_group(hits, W);
     }
     if (__all_sync(0xffffffffu, done)) break;
+  }
+  if constexpr (Cnt::kOn) {
+    if (active && q == 0) cnt->draw(need, rounds_run(need, W, k));
   }
   *x = res;
   return acc;
@@ -330,9 +390,12 @@ __device__ __forceinline__ V pick4(const V (&v)[4], int g) {
 // takes the parts of its link's first round that read no field value (its
 // counter words, the Box-Muller normal, the logs), which do not wait on
 // the staples; the W lanes of a link then test their rounds together.
+// cnt, where given, counts the heat-bath draws.
+template <class Cnt = NoCount>
 __device__ __forceinline__ void sweep_step_warp(
     float* T, float* X, const LaneLinks& ll, const ChainWords& cw,
-    uint32_t step, float beta, int n_overrelax, int n_heatbath, int k_rej) {
+    uint32_t step, float beta, int n_overrelax, int n_heatbath, int k_rej,
+    Cnt* cnt = nullptr) {
   for (int o = 0; o < n_overrelax; ++o) {
 #pragma unroll 1
     for (int g = 0; g < 4; ++g) {
@@ -364,7 +427,8 @@ __device__ __forceinline__ void sweep_step_warp(
         return expcos_test(p, tau, sigma, prop);
       };
       float x;
-      if (first_accepted(round, k_rej, W, l.q, l.active, &x) && l.q == 0)
+      if (first_accepted(round, k_rej, W, l.q, l.active, &x, cnt) &&
+          l.q == 0)
         L[l.s] = mod_2pi(x + shift);
       __syncwarp();
     }
@@ -513,11 +577,14 @@ __device__ __forceinline__ LaneLink block_link(int mu, int parity,
 // a warp waits for about three round times instead of its slowest link's
 // four or five.  A link's state moves to its lanes by shuffles; every
 // link takes the first of its k_rej rounds that accepts, as the
-// sequential loop does, and stays when none does.
+// sequential loop does, and stays when none does.  cnt, where given,
+// counts the draws (a link's own thread owns it).
+template <class Cnt = NoCount>
 __device__ __forceinline__ void pooled_heatbath_link(
     const float* T, const float* X, float* L, int mu, int parity, int lt,
     int n, int len, int Mx, int Mt, uint32_t seed1, const ChainWords& cw,
-    uint32_t step, uint32_t ctr0, float beta, int k_rej) {
+    uint32_t step, uint32_t ctr0, float beta, int k_rej,
+    Cnt* cnt = nullptr) {
   const int lane = threadIdx.x & 31;
   const bool active = lt < n;
   float tau = 0.0f, shift = 0.0f, sigma = 0.0f;
@@ -537,6 +604,8 @@ __device__ __forceinline__ void pooled_heatbath_link(
                    expcos_round(StreamUniform{base_s, cw}, ctr0, 0, tau,
                                 sigma, &prop);
   if (ok0) L[s] = mod_2pi(prop + shift);
+  // the link's rounds needed (k_rej unless one accepts) and evaluated
+  int need = ok0 ? 1 : k_rej, evals = min(k_rej, 1);
   // the links still drawing, all at round r
   unsigned pm = __ballot_sync(0xffffffffu, active && !ok0);
   for (int r = 1; pm != 0u && r < k_rej;) {
@@ -562,10 +631,27 @@ __device__ __forceinline__ void pooled_heatbath_link(
     if (has && q == 0 && hits != 0u) L[s_j] = mod_2pi(first + shift_j);
     // each pending link's owner learns from its group's first lane
     const int rank = __popc(pm & ((1u << lane) - 1u));
-    const bool took = __shfl_sync(0xffffffffu, hits != 0u ? 1 : 0,
-                                  ((pm >> lane) & 1u) ? rank * W : lane) != 0;
-    pm = __ballot_sync(0xffffffffu, ((pm >> lane) & 1u) && !took);
+    const bool mine = (pm >> lane) & 1u;
+    bool took;
+    if constexpr (Cnt::kOn) {
+      // the hit's place in the group, 0 for none, from its first lane
+      const int at = __shfl_sync(
+          0xffffffffu, hits != 0u ? hit_in_group(hits, W) : 0,
+          mine ? rank * W : lane);
+      took = at != 0;
+      if (mine) {
+        evals += min(W, k_rej - r);
+        if (took) need = r + at;
+      }
+    } else {
+      took = __shfl_sync(0xffffffffu, hits != 0u ? 1 : 0,
+                         mine ? rank * W : lane) != 0;
+    }
+    pm = __ballot_sync(0xffffffffu, mine && !took);
     r += W;
+  }
+  if constexpr (Cnt::kOn) {
+    if (active) cnt->draw(need, evals);
   }
 }
 
@@ -575,10 +661,12 @@ __device__ __forceinline__ void pooled_heatbath_link(
 // h reads counters from ((h*4 + g) * k_rej) * 3 on, as the reference
 // draws 3 k_rej words for every element of every group.  The block
 // design's form: lt is this thread's place in the chain's team of G.
+// cnt, where given, counts the heat-bath draws.
+template <class Cnt = NoCount>
 __device__ __forceinline__ void sweep_step_team(
     float* T, float* X, int Mx, int Mt, int lt, int G, uint32_t seed1,
     const ChainWords& cw, uint32_t step, float beta, int n_overrelax,
-    int n_heatbath, int k_rej) {
+    int n_heatbath, int k_rej, Cnt* cnt = nullptr) {
   for (int o = 0; o < n_overrelax; ++o) {
     for (int g = 0; g < 4; ++g) {
       const int mu = g >> 1;
@@ -623,11 +711,11 @@ __device__ __forceinline__ void sweep_step_team(
           return expcos_round(uni, ctr0, r, tau, sigma, prop);
         };
         float x;
-        if (first_accepted(round, k_rej, W, q, active, &x) && q == 0)
+        if (first_accepted(round, k_rej, W, q, active, &x, cnt) && q == 0)
           L[l.s] = mod_2pi(x + shift);
       } else if (n <= G) {
         pooled_heatbath_link(T, X, L, mu, parity, lt, n, len, Mx, Mt, seed1,
-                             cw, step, ctr0, beta, k_rej);
+                             cw, step, ctr0, beta, k_rej, cnt);
       } else {
         // the thread's links one round at a time: a link that accepts (or
         // runs out of rounds) hands the next round to the next link
@@ -655,6 +743,8 @@ __device__ __forceinline__ void sweep_step_team(
                            &prop);
           if (ok) L[s] = mod_2pi(prop + shift);
           if (ok || ++r >= k_rej) {
+            // rounds run one at a time: the accepting one not yet in r
+            if constexpr (Cnt::kOn) cnt->draw(ok ? r + 1 : r, ok ? r + 1 : r);
             k += G;
             w.next();
             fresh = true;

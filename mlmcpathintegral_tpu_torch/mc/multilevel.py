@@ -69,6 +69,7 @@ from mlmcpathintegral_tpu_torch.mc.twolevel import (
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelMetropolisStep
 from mlmcpathintegral_tpu_torch.ops import _cuda
 from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
+from mlmcpathintegral_tpu_torch.utils import timer
 from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
 from mlmcpathintegral_tpu_torch.utils.timer import sync
 
@@ -240,7 +241,12 @@ class MonteCarloMultiLevel:
 
     def _make_fused_chunk(self, ell: int, t_sub: int):
         """Fused two-level chunk for level ell at subsampling rate t_sub:
-        ``chunk(seed, carry, n_active) -> (carry, ybar)``."""
+        ``chunk(seed, carry, n_active) -> (carry, ybar)``.  While the
+        program records (utils/timer.py), a chunk is span
+        ``level{ell}.chunk``, its attributes ``accepts`` (the screen's
+        accepts, a device count) and ``screens`` (n_steps x chains),
+        around K4's ``k4.launch`` and ``level{ell}.stats`` (the statistics'
+        update and the Y mean)."""
         from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import (
             schwinger_twolevel_chain,
         )
@@ -255,32 +261,42 @@ class MonteCarloMultiLevel:
         clat = cact.lattice
         ec_center = float(clat.Mt_lat * clat.Mx_lat
                           * i1e(cact.beta) / i0e(cact.beta))
+        span_chunk, span_stats = f"level{ell}.chunk", f"level{ell}.stats"
 
         def chunk(seed, carry, n_active):
+            with timer.span(span_chunk) as sp:
+                return chunk_body(sp, seed, carry, n_active)
+
+        def chunk_body(sp, seed, carry, n_active):
             cstate, tl, st_y, st_cs, st_slow, t_accum = carry
             thf, thc, sf, sq, y, qc, ec, acc = schwinger_twolevel_chain(
                 tl.theta, cstate.x, tl.S_fine, tl.S_cond, seed,
                 beta=act.beta, beta_c=cact.beta,
                 Mt=lat.Mt_lat, Mx=lat.Mx_lat,
                 n_steps=chunk_size, t_sub=t_sub, chain0=self._chain0)
-            st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
-            st_cs = stats_mod.record_many(st_cs, four_pi2_inv * qc * qc)
-            st_slow = stats_mod.record_many(st_slow, ec - ec_center)
+            if sp:
+                sp.set(accepts=acc.sum(), screens=acc.numel())
+            with sp.child(span_stats):
+                st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
+                st_cs = stats_mod.record_many(st_cs, four_pi2_inv * qc * qc)
+                st_slow = stats_mod.record_many(st_slow, ec - ec_center)
+                # per-step cross-chain Y mean: the series behind the
+                # binning cross-check of a window-capped tau
+                ybar = self._ybar(y)
             sum_t, n_indep = t_accum
             t_accum = (sum_t + t_sub * chunk_size,
                        n_indep + float(chunk_size))
             cstate = type(cstate)(x=thc)
             tl_new = type(tl)(theta=thf, S_fine=sf, S_cond=sq)
-            # per-step cross-chain Y mean: the series behind the binning
-            # cross-check of a window-capped tau
-            return (cstate, tl_new, st_y, st_cs, st_slow, t_accum), \
-                self._ybar(y)
+            return (cstate, tl_new, st_y, st_cs, st_slow, t_accum), ybar
 
         return chunk
 
     def _make_fused_chunk_L(self, t_sub: int):
         """Fused coarsest-level chunk: chunk_size tau-subsampled
-        measurements driven by the sweep-chain kernel."""
+        measurements driven by the sweep-chain kernel.  While the program
+        records, span ``level{L-1}.chunk`` around K3's ``k3.launch`` and
+        ``level{L-1}.stats``."""
         from mlmcpathintegral_tpu_torch.ops.schwinger import (
             schwinger_sweep_chain,
         )
@@ -291,24 +307,31 @@ class MonteCarloMultiLevel:
         from scipy.special import i0e, i1e
         ec_center = float(lat.Mt_lat * lat.Mx_lat
                           * i1e(cact.beta) / i0e(cact.beta))
+        ell = self.n_level - 1
+        span_chunk, span_stats = f"level{ell}.chunk", f"level{ell}.stats"
 
         def chunk_L(seed, carry, n_active):
+            with timer.span(span_chunk) as sp:
+                return chunk_body(sp, seed, carry, n_active)
+
+        def chunk_body(sp, seed, carry, n_active):
             cstate, st_y, st_cs, st_slow, t_accum = carry
             x, qsum, esum = schwinger_sweep_chain(
                 cstate.x, seed, beta=cact.beta,
                 Mt=lat.Mt_lat, Mx=lat.Mx_lat,
                 n_steps=chunk_size * t_sub, with_energy=True,
                 chain0=self._chain0)
-            qoi = four_pi2_inv * qsum * qsum       # [chunk*t_sub, C]
-            st_cs = stats_mod.record_many(st_cs, qoi)
-            st_slow = stats_mod.record_many(st_slow, esum - ec_center)
-            y = qoi[t_sub - 1::t_sub]              # [chunk, C]
-            st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
+            with sp.child(span_stats):
+                qoi = four_pi2_inv * qsum * qsum       # [chunk*t_sub, C]
+                st_cs = stats_mod.record_many(st_cs, qoi)
+                st_slow = stats_mod.record_many(st_slow, esum - ec_center)
+                y = qoi[t_sub - 1::t_sub]              # [chunk, C]
+                st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
+                ybar = self._ybar(y)
             sum_t, n_indep = t_accum
             t_accum = (sum_t + t_sub * chunk_size,
                        n_indep + float(chunk_size))
-            return (type(cstate)(x=x), st_y, st_cs, st_slow, t_accum), \
-                self._ybar(y)
+            return (type(cstate)(x=x), st_y, st_cs, st_slow, t_accum), ybar
 
         return chunk_L
 
@@ -477,7 +500,6 @@ class MonteCarloMultiLevel:
         self._set_mesh(mesh, chain_offset(mesh, n_chains))
         self.timings["prepare_s"] = time.monotonic() - t_start
 
-        self.chunk_log = []   # (ell, n_chunks, dispatch_s, block_s)
         self._reset_ybar(L)
 
         def run_level(ell, carry, n_more):
@@ -485,7 +507,6 @@ class MonteCarloMultiLevel:
             dispatches ONE chunk recording nothing (a warm-up whose chain
             steps are extra decorrelation)."""
             done = 0
-            t_d0 = time.monotonic()
             n_chunks = 0
             c_ell = self._level_chunk(ell)
             chunk = self._chunk(ell)
@@ -497,10 +518,7 @@ class MonteCarloMultiLevel:
                         ybar[:n] if self._mesh is None else (ybar, n))
                 done += n
                 n_chunks += 1
-            t_d1 = time.monotonic()
             sync(carry)
-            self.chunk_log.append((ell, n_chunks, round(t_d1 - t_d0, 4),
-                                   round(time.monotonic() - t_d1, 4)))
             return carry
 
         def warm_all_levels(carries, carry_L):

@@ -47,18 +47,18 @@ _SIGNATURES = {
     "mlmc_max_smem_optin": [c_int, ctypes.POINTER(c_int)],
     "mlmc_rng_fill": [c_ptr, c_ptr, c_ptr, c_u32, c_u32, c_u32]
     + [c_int] * 9 + [c_ptr],
-    "mlmc_schwinger_sweep": [c_ptr] * 5 + [c_int] * 8
+    "mlmc_schwinger_sweep": [c_ptr] * 6 + [c_int] * 8
     + [c_float, c_u32, c_u32, c_u32, c_int, c_int, c_size, c_ptr],
     "mlmc_gff_sweep": [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
                        c_float, c_float, c_u32, c_u32, c_u32, c_int, c_int,
                        c_int, c_size, c_ptr],
     "mlmc_gff_nbsum": [c_ptr, c_ptr] + [c_int] * 8 + [c_ptr],
     "mlmc_gff_sweep_attrs": [c_int, c_size, c_int, ctypes.POINTER(c_int)],
-    "mlmc_schwinger_sweep_attrs": [c_int, c_size, c_int,
+    "mlmc_schwinger_sweep_attrs": [c_int, c_size, c_int, c_int,
                                    ctypes.POINTER(c_int)],
-    "mlmc_schwinger_twolevel": [c_ptr] * 13 + [c_int] * 13 + [c_float] * 5
+    "mlmc_schwinger_twolevel": [c_ptr] * 14 + [c_int] * 13 + [c_float] * 5
     + [c_u32, c_u32, c_u32, c_int, c_int, c_size, c_ptr],
-    "mlmc_schwinger_twolevel_attrs": [c_int, c_size, c_int,
+    "mlmc_schwinger_twolevel_attrs": [c_int, c_size, c_int, c_int,
                                       ctypes.POINTER(c_int)],
     "mlmc_rotor_sweep": [c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
                          c_int, c_int, c_float, c_u32, c_u32, c_u32, c_int,

@@ -27,6 +27,9 @@ from mlmcpathintegral_tpu_torch.ops import _cuda
 from mlmcpathintegral_tpu_torch.ops.rng import (
     CounterRng, check_element_capacity, element_ids, seed_pair,
 )
+from mlmcpathintegral_tpu_torch.utils.timer import (
+    COUNT_EVERY, recorded_launch,
+)
 
 TWO_PI = 2.0 * math.pi
 PI = math.pi
@@ -74,11 +77,29 @@ def _first_accepted(prop, ok):
     return torch.where(acc, x, torch.zeros_like(x)), acc
 
 
-def _expcos_rejection(rng, tau, k_rej, dtype):
+def _count_rounds(count, ok):
+    """Add to ``count`` (a loop's row of the counts ``recorded_launch``
+    hands a launch, or None) the rejection loops whose k rounds ``ok`` holds on dim 0, evaluated
+    all at once: every element a draw, its rounds needed the sequential
+    loop's (the first accepting round + 1, or k), its rounds evaluated
+    k."""
+    if count is None:
+        return
+    k = ok.shape[0]
+    acc = ok.any(dim=0)
+    first = torch.argmax(ok.to(torch.int8), dim=0)
+    n = acc.numel()
+    count[0] += n
+    count[1] += torch.where(acc, first + 1, k).sum()
+    count[2] += n * k
+
+
+def _expcos_rejection(rng, tau, k_rej, dtype, count=None):
     """Centred x ~ exp(tau cos x) on [-pi, pi) by mixed-envelope rejection
     (uniform proposals for tau < 0.45, a tight Gaussian otherwise), 3 words
     per round: u1 (radius), u2 (uniform proposal / Box-Muller angle), u
-    (accept).  Returns (x, accepted)."""
+    (accept).  Returns (x, accepted); ``count`` (or None) counts the
+    loop."""
     w = rng.uniform(dtype, n=3 * k_rej)
     w = w.reshape(k_rej, 3, *w.shape[1:])
     u1, u2, u = w[:, 0], w[:, 1], w[:, 2]
@@ -91,6 +112,7 @@ def _expcos_rejection(rng, tau, k_rej, dtype):
     log_ratio = tau * (torch.cos(prop) - 1.0) + torch.where(
         use_uni, 0.0, 2.0 * tau * prop * prop / (PI * PI))
     ok = (-PI <= prop) & (prop < PI) & (torch.log(u) <= log_ratio)
+    _count_rounds(count, ok)
     return _first_accepted(prop, ok)
 
 
@@ -103,11 +125,11 @@ def _expcos_shift(tp, tm, beta):
     return tau, shift
 
 
-def _expcos_draw(rng, cur, tp, tm, beta, k_rej, dtype):
+def _expcos_draw(rng, cur, tp, tm, beta, k_rej, dtype, count=None):
     """Heat-bath draw from p(x) ~ exp[beta(cos(x-tp)+cos(x-tm))]; lanes
     that never accept keep ``cur``."""
     tau, shift = _expcos_shift(tp, tm, beta)
-    x, acc = _expcos_rejection(rng, tau, k_rej, dtype)
+    x, acc = _expcos_rejection(rng, tau, k_rej, dtype, count)
     return torch.where(acc, _mod_2pi(x + shift), cur)
 
 
@@ -122,11 +144,13 @@ def _group_sel(mu, parity):
     return (Ellipsis, slice(None), slice(parity, None, 2))
 
 
-def _one_step(T, X, rng, *, beta, n_overrelax, n_heatbath, k_rej, dtype):
+def _one_step(T, X, rng, *, beta, n_overrelax, n_heatbath, k_rej, dtype,
+              count=None):
     """One full draw on [C, Mx, Mt] fields: n_overrelax + n_heatbath
     coloured sweeps.  Each heat-bath group takes 3 k_rej words from the
     stream; only the group's own sites are drawn (their words are the
-    same ones the Pallas kernel draws for them)."""
+    same ones the Pallas kernel draws for them).  ``count`` (or None)
+    counts the heat bath's rejection loop."""
     for _ in range(n_overrelax):
         for mu, parity in _GROUPS:
             tp, tm = _staples(T, X, mu)
@@ -140,7 +164,7 @@ def _one_step(T, X, rng, *, beta, n_overrelax, n_heatbath, k_rej, dtype):
             sel = _group_sel(mu, parity)
             L = (T if mu == 0 else X).clone()
             L[sel] = _expcos_draw(rng.at(sel), L[sel], tp[sel], tm[sel],
-                                  beta, k_rej, dtype)
+                                  beta, k_rej, dtype, count)
             rng.skip(3 * k_rej)
             T, X = (L, X) if mu == 0 else (T, L)
     return T, X
@@ -150,12 +174,15 @@ def _plaquettes(T, X):
     return _mod_2pi(T + _sh(X, 1, 0) - _sh(T, 0, 1) - X)
 
 
+@recorded_launch("k3.launch", 1)
 def schwinger_sweep_chain_plain(theta, seed, *, beta, Mt, Mx, n_steps,
                                 n_overrelax=1, n_heatbath=1, k_rej=6,
-                                with_energy=False, step_offset=0, chain0=0):
+                                with_energy=False, step_offset=0, chain0=0,
+                                rounds=None):
     """Plain PyTorch version of the kernel (any device, any float dtype):
     returns (theta', qsum[n_steps, C], esum[n_steps, C] or None).
-    ``chain0``: the global index of theta's first chain, as the kernel's."""
+    ``chain0``: the global index of theta's first chain, as the kernel's.
+    Recorded as the kernel's launch, ``rounds`` the heat bath's counts."""
     SWEEP.count_plain(theta)
     C = theta.shape[0]
     check_element_capacity(Mx * Mt, C, chain0)
@@ -168,7 +195,8 @@ def schwinger_sweep_chain_plain(theta, seed, *, beta, Mt, Mx, n_steps,
         rng = CounterRng(seed1, site, chain, seed2, step=step_offset + s)
         T, X = _one_step(T, X, rng, beta=beta, n_overrelax=n_overrelax,
                          n_heatbath=n_heatbath, k_rej=k_rej,
-                         dtype=theta.dtype)
+                         dtype=theta.dtype,
+                         count=None if rounds is None else rounds[0])
         plaq = _plaquettes(T, X)
         qs.append(torch.sum(plaq, dim=(1, 2)))
         if with_energy:
@@ -298,11 +326,15 @@ def sweep_attrs(Mt: int, Mx: int, n_chains: int):
     lanes, cpb, smem, branch = sweep_launch(
         Mt, Mx, n_chains, _cuda.max_smem_optin(0))
     return _cuda.kernel_attrs("mlmc_schwinger_sweep_attrs", lanes * cpb,
-                              smem, int(branch == "warp"))
+                              smem, int(branch == "warp"), 0)  # uncounted
 
 
+@recorded_launch("k3.launch", 1, every=COUNT_EVERY)
 def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
-                n_heatbath, k_rej, with_energy, step_offset, want_q, chain0):
+                n_heatbath, k_rej, with_energy, step_offset, want_q, chain0,
+                rounds):
+    """The kernel's launch; with ``rounds`` the counted kernel, which adds
+    the heat bath's counts to it."""
     C = theta.shape[0]
     _cuda.require_cuda("theta", theta, (C, 2 * Mx * Mt))
     check_element_capacity(Mx * Mt, C, chain0)
@@ -321,6 +353,7 @@ def _sweep_cuda(theta, seed, *, beta, Mt, Mx, n_steps, n_overrelax,
         qsum.data_ptr() if qsum is not None else None,
         esum.data_ptr() if esum is not None else None,
         work.data_ptr() if work is not None else None,
+        rounds.data_ptr() if rounds is not None else None,
         C, Mx, Mt, n_steps, step_offset, n_overrelax, n_heatbath, k_rej,
         float(beta), seed1, seed2, chain0, lanes, cpb, smem,
         _cuda.stream_ptr(theta.device))

@@ -32,8 +32,11 @@ from mlmcpathintegral_tpu_torch.ops.rng import (
     CounterRng, check_element_capacity, element_ids, seed_pair,
 )
 from mlmcpathintegral_tpu_torch.ops.schwinger import (
-    TWOLEVEL_WORDS, _expcos_rejection, _expcos_shift, _first_accepted,
-    _mod_2pi, _one_step, block_threads, warp_lanes,
+    TWOLEVEL_WORDS, _count_rounds, _expcos_rejection, _expcos_shift,
+    _first_accepted, _mod_2pi, _one_step, block_threads, warp_lanes,
+)
+from mlmcpathintegral_tpu_torch.utils.timer import (
+    COUNT_EVERY, recorded_launch,
 )
 
 PI = math.pi
@@ -172,19 +175,19 @@ def restrict_comps(f):
 # Conditioned fill (quenchedschwingerconditionedfineaction.cc:7-78)
 # ---------------------------------------------------------------------------
 
-def _expcos_fill_draw(rng, tp, tm, beta, k_rej, dtype):
+def _expcos_fill_draw(rng, tp, tm, beta, k_rej, dtype, count=None):
     """ExpCos rejection draw without fallback: (x, ok); lanes with
     ok=False carry no valid sample and force-reject the move."""
     tau, shift = _expcos_shift(tp, tm, beta)
-    x, acc = _expcos_rejection(rng, tau, k_rej, dtype)
+    x, acc = _expcos_rejection(rng, tau, k_rej, dtype, count)
     return _mod_2pi(x + shift), acc
 
 
 def _bessel_draw(rng, x_p, x_m, beta, log_i0_2beta, sigma_beta, k_rej,
-                 dtype):
+                 dtype, count=None):
     """BesselProduct two-piece Gaussian-envelope rejection draw, truncated
     at k_rej rounds (4 words a round; 2 in the flat small-beta regime);
-    returns (x, ok)."""
+    returns (x, ok); ``count`` (or None) counts the loop."""
     sb = sigma_beta
     dx0 = x_m - x_p
     sign = torch.where(dx0 < 0, dx0.new_tensor(-1.0), dx0.new_tensor(1.0))
@@ -223,6 +226,7 @@ def _bessel_draw(rng, x_p, x_m, beta, log_i0_2beta, sigma_beta, k_rej,
                    + kernel_log_i0(2.0 * beta * torch.cos(0.5 * (prop - dx)))
                    - log_C + u * u)
     ok = in_interval & (torch.log(xi) <= log_rho)
+    _count_rounds(count, ok)
     x, acc = _first_accepted(prop, ok)
     return _mod_2pi(sign * x + x_p), acc
 
@@ -292,9 +296,11 @@ def _expcos_log_eval(x, beta, tp, tm):
 
 
 def prolongate_fill(rng, Tc, Xc, beta, log_i0_2beta, sigma_beta, k_rej,
-                    k_rej_bessel, dtype, exact=True):
+                    k_rej_bessel, dtype, exact=True, counts=None):
     """Trial fine state: prolongate the coarse links + 3-step fill.
-    Returns (components, fill_ok[C])."""
+    Returns (components, fill_ok[C]).  ``counts`` (or None): the rows of
+    the BesselProduct draws and of the ExpCos fill to count into."""
+    c_bes, c_fill = (None, None) if counts is None else counts
     # prolongate 'both': each coarse link splits evenly over its halves
     T00 = 0.5 * Tc
     T01 = 0.5 * Tc
@@ -315,7 +321,7 @@ def prolongate_fill(rng, Tc, Xc, beta, log_i0_2beta, sigma_beta, k_rej,
     if exact:
         theta_tilde, ok_b = _bessel_draw(rng, theta_p, theta_m, beta,
                                          log_i0_2beta, sigma_beta,
-                                         k_rej_bessel, dtype)
+                                         k_rej_bessel, dtype, c_bes)
     else:
         theta_tilde, ok_b = _approx_bessel_draw(rng, theta_p, theta_m,
                                                 beta, dtype)
@@ -326,10 +332,12 @@ def prolongate_fill(rng, Tc, Xc, beta, log_i0_2beta, sigma_beta, k_rej,
     # STEP 3: interior horizontal links (odd-j rows) from ExpCos
     tp_e = _mod_2pi(T00 + X01 - X00)
     tm_e = _mod_2pi(X10 + sh(T00, 1, 0) - X11)
-    T10, ok_e = _expcos_fill_draw(rng, tp_e, tm_e, beta, k_rej, dtype)
+    T10, ok_e = _expcos_fill_draw(rng, tp_e, tm_e, beta, k_rej, dtype,
+                                  c_fill)
     tp_o = _mod_2pi(T01 + sh(X00, 0, 1) - X01)
     tm_o = _mod_2pi(X11 + sh(T01, 1, 0) - sh(X10, 0, 1))
-    T11, ok_o = _expcos_fill_draw(rng, tp_o, tm_o, beta, k_rej, dtype)
+    T11, ok_o = _expcos_fill_draw(rng, tp_o, tm_o, beta, k_rej, dtype,
+                                  c_fill)
 
     ok = ok_b & ok_e & ok_o
     fill_ok = ok.flatten(1).all(dim=1)                       # [C]
@@ -399,13 +407,16 @@ def fill_constants(beta: float):
             bp.log_I0_twobeta, bp.sigma_beta)
 
 
+@recorded_launch("k4.launch", 3)
 def schwinger_twolevel_chain_plain(theta_fine, theta_coarse, s_fine_cache,
                                    s_cond_cache, seed, *, beta, beta_c, Mt,
                                    Mx, n_steps, t_sub=2, n_overrelax_c=1,
                                    n_heatbath_c=1, k_rej=8, k_rej_fill=16,
-                                   k_rej_bessel=48, chain0=0):
+                                   k_rej_bessel=48, chain0=0, rounds=None):
     """Plain PyTorch version of the kernel (any device, any float dtype);
-    same signature and outputs as :func:`schwinger_twolevel_chain`."""
+    same signature and outputs as :func:`schwinger_twolevel_chain`.
+    Recorded as the kernel's launch, ``rounds`` the counts of the coarse
+    heat bath, the BesselProduct draws and the ExpCos fill."""
     TWOLEVEL.count_plain(theta_fine)
     exact, alphas, log_i0_2beta, sigma_beta = fill_constants(float(beta))
     dtype = theta_fine.dtype
@@ -427,14 +438,16 @@ def schwinger_twolevel_chain_plain(theta_fine, theta_coarse, s_fine_cache,
             Tc, Xc = _one_step(Tc, Xc, rng_t, beta=beta_c,
                                n_overrelax=n_overrelax_c,
                                n_heatbath=n_heatbath_c, k_rej=k_rej,
-                               dtype=dtype)
+                               dtype=dtype,
+                               count=None if rounds is None else rounds[0])
             P = coarse_plaquettes(Tc, Xc)
             qcs.append(torch.sum(_mod_2pi(P), dim=(-2, -1)))
             ecs.append(torch.sum(torch.cos(P), dim=(-2, -1)))
         rng = CounterRng(seed1, site, chain, seed2, step=base + t_sub)
         trial, fill_ok = prolongate_fill(
             rng, Tc, Xc, beta, log_i0_2beta, sigma_beta, k_rej_fill,
-            k_rej_bessel, dtype, exact=exact)
+            k_rej_bessel, dtype, exact=exact,
+            counts=None if rounds is None else (rounds[1], rounds[2]))
         S_f_trial = s_fine(trial, beta)
         Tc_r, Xc_r = restrict_comps(f)
         dS_coarse = s_coarse(Tc_r, Xc_r, beta_c) - s_coarse(Tc, Xc, beta_c)
@@ -499,7 +512,7 @@ def twolevel_attrs(Mt: int, Mx: int, n_chains: int):
     of an Mx x Mt fine field (the card is needed)."""
     lanes, cpb, smem, branch = twolevel_launch(Mt, Mx, n_chains)
     return _cuda.kernel_attrs("mlmc_schwinger_twolevel_attrs", lanes * cpb,
-                              smem, int(branch == "warp"))
+                              smem, int(branch == "warp"), 0)  # uncounted
 
 
 @functools.lru_cache(maxsize=32)
@@ -509,10 +522,13 @@ def _device_alphas(beta: float, device: torch.device):
                         device=device)
 
 
+@recorded_launch("k4.launch", 3, every=COUNT_EVERY)
 def _twolevel_cuda(theta_fine, theta_coarse, s_fine_cache, s_cond_cache,
                    seed, *, beta, beta_c, Mt, Mx, n_steps, t_sub,
                    n_overrelax_c, n_heatbath_c, k_rej, k_rej_fill,
-                   k_rej_bessel, chain0):
+                   k_rej_bessel, chain0, rounds):
+    """The kernel's launch; with ``rounds`` the counted kernel, which adds
+    its three loops' counts to it."""
     C = theta_fine.shape[0]
     if Mt % 2 or Mx % 2:
         raise ValueError("both-direction coarsening needs even Mt, Mx")
@@ -543,7 +559,9 @@ def _twolevel_cuda(theta_fine, theta_coarse, s_fine_cache, s_cond_cache,
         s_fine_cache.data_ptr(), s_cond_cache.data_ptr(),
         fine_out.data_ptr(), coarse_out.data_ptr(), sf_out.data_ptr(),
         sq_out.data_ptr(), y.data_ptr(), qc.data_ptr(), ec.data_ptr(),
-        acc.data_ptr(), dev_alphas.data_ptr(), len(alphas), C, Mx, Mt,
+        acc.data_ptr(), dev_alphas.data_ptr(),
+        rounds.data_ptr() if rounds is not None else None, len(alphas), C,
+        Mx, Mt,
         n_steps, t_sub, n_overrelax_c, n_heatbath_c, k_rej, k_rej_fill,
         k_rej_bessel, int(exact), int(small_beta), float(beta),
         float(beta_c), float(2.0 * log_i0_2beta), float(sigma_beta),

@@ -4,7 +4,6 @@ from mlmcpathintegral_tpu_torch.utils.special import (
     log_i0, log_nCk, mod_2pi, mod_pi,
 )
 from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
-from mlmcpathintegral_tpu_torch.utils.timer import Timer
 from mlmcpathintegral_tpu_torch.utils.config import (
     Section, read_parameter_file,
 )
