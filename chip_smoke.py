@@ -249,6 +249,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                draw, idle share, host reads a sample.  Phase 9 also
                requires one K2 launch a hybrid draw (K7's launches less
                the samplers' K7-only burn-in).
+ 23. stats   - the statistics kernel (``ops/statistics.py``,
+               ``csrc/statistics.cu``) against ``record_block_plain`` on
+               the same card tensors at the benchmark cells' records
+               (``STATS_SHAPES``): ring and counters equal, moments and
+               S_k within 64 eps sqrt(T) of the field's scale (the chip
+               test's tolerance); each with the kernel's ms and the plain
+               version's (CUDA events), the memory each allocates beyond
+               its inputs, the bound, the launch layout, registers and
+               resident warps.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; each kernel of a path must have launched in it.  The
@@ -258,7 +267,9 @@ on path E; the two probe kernels, P1 and rng_fill's step-less mode P2,
 are on no path and launch 0 times there; K3 and K4 also with their
 launches on phase 21's 16x16 row and their block branches' times; K2, the
 same kernel as K3, with its launches on path A and on phase 22's 16x16
-cluster row and its times at the hybrid draw's launches),
+cluster row and its times at the hybrid draw's launches; the statistics
+kernel S with its launches on phase 5's path and its times at phase 23's
+shapes),
 ``chain0`` where phase 17
 checked the kernel's chain offset (K3 and K4 also ``block_branch_chain0``), the
 measured ms of a launch at
@@ -1444,6 +1455,89 @@ def hybrid_phase(dev, root):
     out = {"phase": "hybrid", "k2_mix": k2,
            f"cluster_row_{M}x{M}": row, "path_A_profile": prof}
     return out, failures, k2, launches
+
+
+#: phase 23: the statistics records a round of the benchmark cells make
+#: (name, chains, k_max, T, n_valid): the 8x8 cells' Y at T 256 and their
+#: coarse Q^2 and energy traces at T 2048 (k_max 100, 8192 and 1024
+#: chains), the 64x64 cell's Y at T 81 and traces at T 8100 (k_max 64)
+STATS_SHAPES = (("8x8_c8192_y", 8192, 100, 256, 256),
+                ("8x8_c8192_trace", 8192, 100, 2048, None),
+                ("8x8_c1024_y", 1024, 100, 256, 256),
+                ("8x8_c1024_trace", 1024, 100, 2048, None),
+                ("64x64_c1024_y", 1024, 64, 81, 81),
+                ("64x64_c1024_trace", 1024, 64, 8100, None))
+
+
+def work_stats(C, K, v):
+    """(bytes, operations) of a statistics record of v samples into a
+    [C, K] state: the block read, the ring and S_k read and written, the
+    moments and counters; a multiply-add a lag and sample, and 7
+    operations a sample for the four moments."""
+    return 4 * (v * C + 4 * C * K + 12 * C), 2 * C * K * v + 7 * C * v
+
+
+def stats_phase(dev):
+    """Phase 23: the statistics kernel against its plain version on the
+    same card tensors at ``STATS_SHAPES``, each on a state that has
+    recorded one block already: ring and counters equal, moments and S_k
+    within 64 eps sqrt(T) of the field's scale; the kernel's ms (CUDA
+    events, 20 records) and the plain version's (3 records), the memory each allocates during one record beyond its
+    inputs, the bound, the launch layout, registers and resident warps.
+    Returns (the phase's line, its failures, the checks by shape)."""
+    from mlmcpathintegral_tpu_torch.ops import statistics as ops_stats
+    from mlmcpathintegral_tpu_torch.perf_probe import cuda_ms
+    from mlmcpathintegral_tpu_torch.utils import statistics as st
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    eps = float(torch.finfo(torch.float32).eps)
+    checks, failures = {}, []
+    for name, C, K, T, n_valid in STATS_SHAPES:
+        state = st.init(C, K, torch.float32, dev)
+        state = st.record_block(state, torch.randn((T, C), generator=g,
+                                                   device=dev) + 0.3)
+        Q = torch.randn((T, C), generator=g, device=dev) + 0.3
+
+        def kernel():
+            return st.record_block(state, Q, n_valid)
+
+        def plain():
+            return st.record_block_plain(state, Q, n_valid)
+        got, want = kernel(), plain()
+        exact = all(torch.equal(getattr(got, f), getattr(want, f))
+                    for f in ("n", "n_lt", "ring"))
+        rel = {f: float((getattr(got, f) - getattr(want, f)).abs().max()
+                        / getattr(want, f).abs().max().clamp(min=1e-30))
+               for f in ("avg", "avg_lt", "avg2_lt", "avg3_lt", "avg4_lt",
+                         "S_k")}
+        tol = 64 * eps * math.sqrt(T)
+        del got, want
+        lags, wpc, cb, smem = ops_stats.record_launch(K, C)
+        v = T if n_valid is None else n_valid
+        checks[name] = {
+            "shape": {"chains": C, "k_max": K, "T": T, "n_valid": v},
+            "exact_ring_and_counters": exact,
+            "max_rel_diff_from_plain": rel, "tol": tol,
+            "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+            "peak_bytes": peak(kernel), "plain_peak_bytes": peak(plain),
+            **bound_ms_row(*work_stats(C, K, v)),
+            "layout": {"lags_per_thread": lags, "warps_per_chain": wpc,
+                       "chains_per_block": cb, "smem_bytes": smem,
+                       **ops_stats.record_attrs(K, C)}}
+        if not exact or max(rel.values()) > tol:
+            failures.append(f"the statistics kernel disagrees with its "
+                            f"plain version at {name}")
+        del state, Q
+        torch.cuda.empty_cache()
+    return {"phase": "stats", "records": checks}, failures, checks
 
 
 def sequential_screen_run(dev, n_chains=SEQ_CHAINS, n_samples=SEQ_SAMPLES):
@@ -2749,6 +2843,12 @@ def main() -> int:
     if failed22:
         fail("phase 22: " + "; ".join(failed22))
 
+    # ---- 23. the statistics kernel at the cells' records ----------------
+    r23, failed23, stats_checks = stats_phase(dev)
+    emit(r23)
+    if failed23:
+        fail("phase 23: " + "; ".join(failed23))
+
     # ---- the kernel table and the result line ---------------------------
     # every kernel with its launches on its own path: K3 and K4 on the
     # heat-bath main path (phase 5), K7 on path A (phase 9), K8 on path B2
@@ -2772,6 +2872,21 @@ def main() -> int:
         rows.append({"name": counter.name, "route": "cuda",
                      "source": counter.source, "replaces": counter.replaces,
                      "launches": n, **row})
+    # S: the statistics kernel, with its launches on the main path (phase
+    # 5) and its times at the 8x8 c8192 trace record, the heaviest; every
+    # shape of phase 23 under "records"
+    s_top = stats_checks["8x8_c8192_trace"]
+    rows.append({"name": ops.STATS.name, "route": "cuda",
+                 "source": ops.STATS.source, "replaces": ops.STATS.replaces,
+                 "launches": launches[ops.STATS.name],
+                 **{key: s_top[key] for key in (
+                     "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "bytes", "operations", "library_ms",
+                     "layout")},
+                 "records": {shape: {key: c[key] for key in (
+                     "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "peak_bytes", "plain_peak_bytes")}
+                     for shape, c in stats_checks.items()}})
     # P2: rng_fill's step-less mode, launched by no path
     rows.append({"name": "rng_fill (step-less)", "route": "cuda",
                  "source": "mlmcpathintegral_tpu_torch/csrc/rng_fill.cu",
@@ -2812,7 +2927,8 @@ def main() -> int:
         "name": "CounterRng", "route": "cuda", "source": ops.RNG_FILL.source,
         "replaces": ops.RNG_FILL.replaces,
         "runs_inside": [r["name"] for r in rows
-                        if r["name"] not in (hmc.HMC.name, gff.NBSUM.name)],
+                        if r["name"] not in (hmc.HMC.name, gff.NBSUM.name,
+                                             ops.STATS.name)],
         "checked_through": ops.RNG_FILL.name,
         "rng_fill_launches": launches[ops.RNG_FILL.name], **rng_row}]
     # the kernels whose global chain offset phase 17 checked, on the
@@ -2822,7 +2938,7 @@ def main() -> int:
     rows[0]["block_branch_chain0"] = r17[BLOCK_K3]["ok"]
     rows[1]["block_branch_chain0"] = r17[BLOCK_K4]["ok"]
     for r in rows:
-        if r["name"] in (hmc.HMC.name, gff.NBSUM.name):
+        if r["name"] in (hmc.HMC.name, gff.NBSUM.name, ops.STATS.name):
             r["chain0_note"] = "draws no random words: nothing to offset"
     device_functions[0]["chain0"] = r17[ops.RNG_FILL.name]["ok"]
     emit({"phase": "done", "seconds": time.monotonic() - start})

@@ -68,6 +68,7 @@ from mlmcpathintegral_tpu_torch.mc.twolevel import (
 )
 from mlmcpathintegral_tpu_torch.mc.twolevelstep import TwoLevelMetropolisStep
 from mlmcpathintegral_tpu_torch.ops import _cuda
+from mlmcpathintegral_tpu_torch.ops.statistics import STATS
 from mlmcpathintegral_tpu_torch.utils import statistics as stats_mod
 from mlmcpathintegral_tpu_torch.utils import timer
 from mlmcpathintegral_tpu_torch.utils.statistics import Statistics
@@ -246,7 +247,8 @@ class MonteCarloMultiLevel:
         ``level{ell}.chunk``, its attributes ``accepts`` (the screen's
         accepts, a device count) and ``screens`` (n_steps x chains),
         around K4's ``k4.launch`` and ``level{ell}.stats`` (the statistics'
-        update and the Y mean)."""
+        update and the Y mean; its attribute ``stats_launches`` counts the
+        statistics kernel's launches in it, 3 on the card)."""
         from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import (
             schwinger_twolevel_chain,
         )
@@ -276,13 +278,15 @@ class MonteCarloMultiLevel:
                 n_steps=chunk_size, t_sub=t_sub, chain0=self._chain0)
             if sp:
                 sp.set(accepts=acc.sum(), screens=acc.numel())
-            with sp.child(span_stats):
+            with sp.child(span_stats) as ss:
+                launches = STATS.launches
                 st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
                 st_cs = stats_mod.record_many(st_cs, four_pi2_inv * qc * qc)
                 st_slow = stats_mod.record_many(st_slow, ec - ec_center)
                 # per-step cross-chain Y mean: the series behind the
                 # binning cross-check of a window-capped tau
                 ybar = self._ybar(y)
+                ss.set(stats_launches=STATS.launches - launches)
             sum_t, n_indep = t_accum
             t_accum = (sum_t + t_sub * chunk_size,
                        n_indep + float(chunk_size))
@@ -296,7 +300,7 @@ class MonteCarloMultiLevel:
         """Fused coarsest-level chunk: chunk_size tau-subsampled
         measurements driven by the sweep-chain kernel.  While the program
         records, span ``level{L-1}.chunk`` around K3's ``k3.launch`` and
-        ``level{L-1}.stats``."""
+        ``level{L-1}.stats`` (with ``stats_launches``)."""
         from mlmcpathintegral_tpu_torch.ops.schwinger import (
             schwinger_sweep_chain,
         )
@@ -321,13 +325,15 @@ class MonteCarloMultiLevel:
                 Mt=lat.Mt_lat, Mx=lat.Mx_lat,
                 n_steps=chunk_size * t_sub, with_energy=True,
                 chain0=self._chain0)
-            with sp.child(span_stats):
+            with sp.child(span_stats) as ss:
+                launches = STATS.launches
                 qoi = four_pi2_inv * qsum * qsum       # [chunk*t_sub, C]
                 st_cs = stats_mod.record_many(st_cs, qoi)
                 st_slow = stats_mod.record_many(st_slow, esum - ec_center)
                 y = qoi[t_sub - 1::t_sub]              # [chunk, C]
                 st_y = stats_mod.record_block(st_y, y, n_valid=n_active)
                 ybar = self._ybar(y)
+                ss.set(stats_launches=STATS.launches - launches)
             sum_t, n_indep = t_accum
             t_accum = (sum_t + t_sub * chunk_size,
                        n_indep + float(chunk_size))

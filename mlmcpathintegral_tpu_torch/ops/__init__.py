@@ -12,13 +12,14 @@ from mlmcpathintegral_tpu_torch.ops.rotor import CLUSTER as ROTOR_CLUSTER
 from mlmcpathintegral_tpu_torch.ops.rotor import SWEEP as ROTOR_SWEEP
 from mlmcpathintegral_tpu_torch.ops.schwinger import SWEEP
 from mlmcpathintegral_tpu_torch.ops.schwinger_twolevel import TWOLEVEL
+from mlmcpathintegral_tpu_torch.ops.statistics import STATS
 
 
 def counters():
     """The :class:`~mlmcpathintegral_tpu_torch.ops._cuda.KernelCounter`
     of every kernel wrapper."""
     return [RNG_FILL, SWEEP, TWOLEVEL, ROTOR_SWEEP, ROTOR_CLUSTER, HMC,
-            QM_TWOLEVEL, GFF_SWEEP, GFF_NBSUM]
+            QM_TWOLEVEL, GFF_SWEEP, GFF_NBSUM, STATS]
 
 
 def reset_counters() -> None:

@@ -75,6 +75,9 @@ _SIGNATURES = {
     "mlmc_qm_twolevel": [c_ptr] * 12 + [c_int] * 6 + [c_float] * 17
     + [c_u32, c_u32, c_u32, c_int, c_int, c_int, c_ptr],
     "mlmc_qm_twolevel_attrs": [c_int, c_int, ctypes.POINTER(c_int)],
+    "mlmc_stats_record": [c_ptr, c_ptr] + [c_int] * 8 + [c_size, c_ptr],
+    "mlmc_stats_record_attrs": [c_int, c_int, c_int, c_size,
+                                ctypes.POINTER(c_int)],
 }
 
 

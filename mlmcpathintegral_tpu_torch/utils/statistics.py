@@ -25,6 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mlmcpathintegral_tpu_torch.ops import _cuda
+from mlmcpathintegral_tpu_torch.ops import statistics as stats_kernel
+
 
 class StatsState(NamedTuple):
     """Accumulator: int32 scalar counters, [C] moments, [C, k_max]
@@ -53,14 +56,30 @@ def init(n_chains: int, k_max: int, dtype=torch.float32,
                       z(n_chains, k_max))
 
 
+def _n_recorded(T: int, n_valid) -> int:
+    return T if n_valid is None else max(0, min(int(n_valid), T))
+
+
 def record_block(state: StatsState, Qs: torch.Tensor,
                  n_valid=None) -> StatsState:
-    """Record a [T, C] block of samples in closed form (no sequential
-    scan): running moments from block sums, the ring buffer by one
-    gather, the lagged products S_k by k_max lagged dot products of the
-    block against (ring history ++ block).  ``n_valid`` (a host int, or
-    None for the whole block) records only the leading ``n_valid``
-    samples."""
+    """Record a [T, C] block of samples: ``n_valid`` (a host int, or None
+    for the whole block) records only the leading ``n_valid`` samples.  A
+    state on the card is updated by one launch of the statistics kernel
+    (``ops/statistics.py``, ``csrc/statistics.cu``), one on the CPU by
+    :func:`record_block_plain`.  The input state is left as it was."""
+    if _cuda.dispatch_device(state.avg) == "cuda":
+        return StatsState(*stats_kernel.record_block_cuda(
+            state, Qs, _n_recorded(Qs.shape[0], n_valid)))
+    return record_block_plain(state, Qs, n_valid)
+
+
+def record_block_plain(state: StatsState, Qs: torch.Tensor,
+                       n_valid=None) -> StatsState:
+    """The plain version of :func:`record_block`, in closed form (no
+    sequential scan): running moments from block sums, the ring buffer by
+    one gather, the lagged products S_k by k_max lagged dot products of the
+    block against (ring history ++ block)."""
+    stats_kernel.STATS.count_plain(state.avg)
     T = Qs.shape[0]
     dtype = state.avg.dtype
     # [C, T] with each chain's samples contiguous: a chain's sums then
@@ -68,11 +87,10 @@ def record_block(state: StatsState, Qs: torch.Tensor,
     # rank's block of a chain-split run keeps the one-process bits
     Qb = Qs.to(dtype).T.contiguous()
     k_max = state.ring.shape[1]
+    v = _n_recorded(T, n_valid)
     if n_valid is None:
-        v = T
         Qm = Qb
     else:
-        v = max(0, min(int(n_valid), T))
         mask = (torch.arange(T, device=Qb.device) < v).to(dtype)
         Qm = Qb * mask[None, :]
     vf = float(v)

@@ -105,6 +105,9 @@ def test_recorder_on_under_the_profiler(record, chunks):
         s = by[name]
         assert s.parent == root.id and s.chunk == root.id
         assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+    # the CPU records through the plain version: no kernel launch
+    assert by["level0.stats"].attrs == {"stats_launches": 0}
+    assert by["level1.stats"].attrs == {"stats_launches": 0}
     assert fine.parent is None and fine.chunk == fine.id
     # the counts: draws are every link or cell of every sweep or fill
     k4 = by["k4.launch"].attrs["rounds"]

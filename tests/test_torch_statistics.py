@@ -54,15 +54,48 @@ def _both(blocks):
     return tst, jst
 
 
+#: the statistics kernel's edge cases: one sample at a time (T = 1), a
+#: block shorter than the window on a fresh state and on a short history,
+#: n_valid 0, partial and the whole block, a block longer than the window
+EDGE_BLOCKS = [
+    [(_series(1), None), (_series(1, 1), None), (_series(1, 2), None)],
+    [(_series(4), None)],
+    [(_series(3), None), (_series(7, 1), None)],
+    [(_series(9), 0), (_series(9, 1), 4), (_series(9, 2), 9)],
+    [(_series(40), 33), (_series(15, 3), None)],
+]
+EDGE_IDS = ["one_sample", "fresh_short", "short_history", "n_valid_0_part_all",
+            "past_window"]
+
+
 @pytest.mark.parametrize("blocks", [
     [(_series(3), None)],
     [(_series(25), None), (_series(4, 1), None)],
     [(_series(12), 5), (_series(12, 2), 0), (_series(12, 3), 12)],
     [(_series(30), None), "reset", (_series(16, 4), 9)],
-], ids=["short", "two_blocks", "n_valid", "soft_reset"])
+] + EDGE_BLOCKS, ids=["short", "two_blocks", "n_valid", "soft_reset"]
+    + EDGE_IDS)
 def test_accumulators_match(blocks):
     tst, jst = _both(blocks)
     _close(tst, jst)
+
+
+@pytest.mark.parametrize("blocks", EDGE_BLOCKS, ids=EDGE_IDS)
+def test_block_equals_sequential_records(blocks):
+    """The float64 oracle: each block's valid samples recorded one at a
+    time (``record``; ``record_masked`` for the rest, which records none)
+    give the state ``record_block`` gives in one update."""
+    blk = ts.init(C, K_MAX, torch.float64, device="cpu")
+    seq = ts.init(C, K_MAX, torch.float64, device="cpu")
+    for x, n_valid in blocks:
+        x = torch.from_numpy(x)
+        blk = ts.record_block(blk, x, n_valid)
+        v = x.shape[0] if n_valid is None else n_valid
+        for t in range(x.shape[0]):
+            seq = ts.record_masked(seq, x[t], torch.tensor(t < v))
+    for name, a, b in zip(ts.StatsState._fields, blk, seq):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=TOL,
+                                   err_msg=name)
 
 
 def test_getters_match():
