@@ -35,6 +35,11 @@ itself, and reads the chunk's end state:
 
 Each is the largest over the levels, and each has its limit in the
 configuration's file.  Two values agree within ATOL + RTOL |reference|.
+
+This is the fused path's check (``paths/fused.py``).  ``stats_level``,
+``samples_missing`` and ``verdict`` serve every path: another path's
+``judge`` reuses the first two, and ``verdict`` reads the numbers that
+the configuration's ``check.limits`` names.
 """
 
 from __future__ import annotations
@@ -143,7 +148,7 @@ def _k3_level(call, ring_newest, Mt, Mx, beta, t_sub, steps):
     return sweep0, departed, ~end_ok, _by_step(ok)
 
 
-def _stats_level(y, before, after):
+def stats_level(y, before, after):
     """(disagree [C], the largest deviation over the chains as a share of
     the scale) of the Y statistics' update by the chunk's samples ``y``
     [T, C], from the state ``before`` the chunk to the state ``after``
@@ -204,20 +209,37 @@ def judge(cfg: dict, t_sub: list, kept: dict, recorded: list,
                     k["call"], ring_newest, Mt, Mx, betas[ell],
                     betas[ell + 1], t_sub[ell], steps)
                 y = k["call"][2][4]
-            st, lv["stats_dev"] = _stats_level(y, k["before"], k["after"])
+            st, lv["stats_dev"] = stats_level(y, k["before"], k["after"])
         for name, v in zip(SHARES, (s0, dep, end, st)):
             lv[name] = float(v.double().mean())
         lv["prefix_by_step"] = by_step
-    for lv, have, want in zip(per_level, recorded, expected):
-        lv["samples_missing"] = 1.0 if want == 0 else max(0, want - have) \
-            / want
+    for lv, missing in zip(per_level, samples_missing(recorded, expected)):
+        lv["samples_missing"] = missing
     return {k: max(lv[k] for lv in per_level) for k in NUMBERS}, per_level
+
+
+def samples_missing(recorded: list, expected: list) -> list:
+    """Per level the share of the samples the window ran (``expected``)
+    that its Y statistics did not record (``recorded``); 1.0 where the
+    window ran none."""
+    return [1.0 if want == 0 else max(0, want - have) / want
+            for have, want in zip(recorded, expected)]
 
 
 def verdict(numbers: dict, per_level: list, limits: dict):
     """(correct, {name: [value, limit]}, levels failed): correct when
-    every number is at or under its limit."""
-    table = {k: [numbers[k], limits[k]] for k in NUMBERS}
+    every number is at or under its limit.  The names are those of
+    ``limits``, in their order; a name that ``numbers`` or a level lacks,
+    or a number with no limit, raises ``harness.CellError``, so that no
+    number passes unread."""
+    names = list(limits)
+    unread = (set(numbers) ^ set(names)).union(
+        *(set(names) - set(lv) for lv in per_level))
+    if unread:
+        from perfbench.harness import CellError
+        raise CellError(f"the check's numbers and limits differ: "
+                        f"{sorted(unread)}")
+    table = {k: [numbers[k], limits[k]] for k in names}
     failed = sum(1 for lv in per_level
-                 if any(lv[k] > limits[k] for k in NUMBERS))
+                 if any(lv[k] > limits[k] for k in names))
     return failed == 0, table, failed

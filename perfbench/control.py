@@ -2,23 +2,26 @@
 limits were set from.
 
 The control is the reference put in the program's place, computed one
-precision below the configuration's float32: bfloat16, in the kernels'
-place and in the statistics update's (``reference/statistics``), for
-the whole run.  A fault breaks the timed path underneath the harness, in
-the kernel call that a level's chunk makes or in its statistics update:
+precision below the configuration's float32, for the whole run.  A fault
+breaks the timed path underneath the harness, in the call that a level's
+chunk makes or in its statistics update.  The modes:
 
-* ``unchanged``: the chunk's kernel returns its input state unchanged
-  (and the traces the state gives);
-* ``half``: half of the chains are left out: the kernel runs the first
-  half, and the second half repeats it, so every mean is the first
-  half's;
-* ``altered``: Y is altered where the kernel produces it (+1e-2);
+* ``control``: the reference in bfloat16 in the program's place and in
+  the statistics update's (``reference/statistics``);
+* ``unchanged``: the chunk returns its input state unchanged;
+* ``half``: half of the chains are left out, the means taken over the
+  rest;
+* ``altered``: Y is altered where it is produced;
 * ``lagged``: the statistics update drops the lagged products: S_k of
   every lag from 1 on keeps its value from before the update (tau_int
   then reads 1).
 
-A chip has no exchange between chips in these cells, so that fault has
-no place here.
+The cell's run path plants a mode (its ``hooks(mode)``: ``run_cell``'s
+``wrap`` and ``record``, or None for a mode it cannot plant); the
+statistics' two replacements below serve every path.  A mode that the
+path cannot plant is refused: the sound program never runs under a
+control's name.  A chip has no exchange between chips in these cells, so
+that fault has no place here.
 
     python3 perfbench/control.py --workload <cell> --seconds <s> \\
         --seeds 1 2 3 [--mode sound|control|unchanged|half|altered|lagged]
@@ -44,28 +47,12 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from perfbench import harness  # noqa: E402
-from perfbench.reference import schwinger as ref  # noqa: E402
 from perfbench.reference import statistics as stats_ref  # noqa: E402
 
 MODES = ("sound", "control", "unchanged", "half", "altered", "lagged")
-#: the chain axis of each output of K4 (fine, coarse, S_fine, S_cond, Y,
-#: qc, ec, accept) and of K3 (links, Q, energy)
-CHAIN_DIM = {"k4": (0, 0, 0, 0, 1, 1, 1, 1), "k3": (0, 1, 1)}
 
 
-def _reference_kernel(kind, dtype):
-    """The reference in ``dtype`` in a kernel's place: float32 in and out,
-    as the kernel takes and gives."""
-    fn = ref.twolevel_chain if kind == "k4" else ref.sweep_chain
-
-    def kernel(*args, **kw):
-        args = [a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
-                else a for a in args]
-        return tuple(o.to(torch.float32) for o in fn(*args, **kw))
-    return kernel
-
-
-def _reference_record(dtype):
+def reference_record(dtype):
     """The reference's statistics update in ``dtype`` in the place of the
     program's ``record_block``: the running mean, the ring and S_k that
     the benchmark reads; the other moments as the program keeps them."""
@@ -87,7 +74,8 @@ def _reference_record(dtype):
     return make
 
 
-def _dropped_lags(original):
+def dropped_lags(original):
+    """The program's ``record_block`` with the lagged products dropped."""
     def record_block(state, Qs, n_valid=None):
         new = original(state, Qs, n_valid)
         return new._replace(S_k=torch.cat(
@@ -95,48 +83,18 @@ def _dropped_lags(original):
     return record_block
 
 
-def _faulty_kernel(kind, kernel, mode):
-    def broken(*args, **kw):
-        out = list(kernel(*args, **kw))
-        if mode == "unchanged":
-            # the state comes back as it went in: K4 (fine, coarse, S_f,
-            # S_q), K3 (links); the traces are left as the kernel gave them
-            n_state = 4 if kind == "k4" else 1
-            out[:n_state] = [a.clone() for a in args[:n_state]]
-        elif mode == "half":
-            for i, o in enumerate(out):
-                dim = CHAIN_DIM[kind][i]
-                h = o.shape[dim] // 2
-                idx = torch.arange(o.shape[dim], device=o.device) % h
-                out[i] = o.index_select(dim, idx)
-        elif mode == "altered":
-            if kind == "k4":
-                out[4] = out[4] + 1e-2
-            else:
-                out[1] = out[1] + 1e-2
-        return tuple(out)
-    return broken
-
-
-def hooks(mode: str) -> dict:
-    """``run_cell``'s ``wrap`` and ``record`` for a mode (neither for the
-    sound program)."""
+def cell_hooks(name: str, mode: str, root: Path = ROOT) -> dict:
+    """``run_cell``'s ``wrap`` and ``record`` for ``mode`` on cell
+    ``name``'s run path (neither for the sound program).  Raises
+    ``harness.CellError`` where the path cannot plant the mode."""
     if mode == "sound":
         return {}
-    if mode == "lagged":
-        return {"record": _dropped_lags}
-
-    def wrap(tap):
-        def make(ell, kind, kernel):
-            if mode == "control":
-                k = _reference_kernel(kind, torch.bfloat16)
-            else:
-                k = _faulty_kernel(kind, kernel, mode)
-            return tap.wrap(ell, kind, k)
-        return make
-    if mode == "control":
-        return {"wrap": wrap, "record": _reference_record(torch.bfloat16)}
-    return {"wrap": wrap}
+    path = harness.load_path(harness.load_cell(name, root)[1], root)
+    planted = path.hooks(mode) if hasattr(path, "hooks") else None
+    if planted is None:
+        raise harness.CellError(f"the run path of {name} cannot plant "
+                                f"mode {mode!r}")
+    return planted
 
 
 def main(argv=None) -> int:
@@ -146,11 +104,15 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--mode", choices=MODES, default="sound")
     args = p.parse_args(argv)
+    try:
+        hooks = cell_hooks(args.workload, args.mode)
+    except harness.CellError as e:
+        print(f"perfbench: {e}", file=sys.stderr)
+        return 2
     t = T_START
     for seed in args.seeds:
         result, info = harness.run_cell(
-            args.workload, seed, args.seconds, False, t_start=t,
-            **hooks(args.mode))
+            args.workload, seed, args.seconds, False, t_start=t, **hooks)
         print(json.dumps({
             "workload": args.workload, "mode": args.mode, "seed": seed,
             "correct": result["correct"], "check": result["check"],

@@ -1,12 +1,13 @@
-"""Every name of the program that the benchmark calls, in one file.
+"""The fused path's names of the program, and the two that every path
+shares.
 
 The program is ``mlmcpathintegral_tpu_torch``, the PyTorch and CUDA port.
-The harness reaches it only through the functions below, so a change of
-the program that renames or reshapes one of these names breaks the
-yardstick here and nowhere else.  The names used:
+A cell reaches it through its run path (``paths/<name>.py``, the fused
+one where its configuration names none).  The fused path, every level
+on K4 or K3 (``paths/fused.py``), reaches it only through the functions
+below, so a change of the program that renames or reshapes one of these
+names breaks the yardstick here and nowhere else.  Its names:
 
-* ``ops._cuda.build`` (builds the kernel library into the package's
-  ``_build/``, keyed by a hash of the sources);
 * ``lattice2d.Lattice2D``, ``lattice2d.CoarseningType``,
   ``models.base.RenormalisationType``,
   ``models.qft.schwinger.QuenchedSchwingerAction``,
@@ -21,11 +22,15 @@ yardstick here and nowhere else.  The names used:
   ``cstate.x``) and ``(cstate, st_y, st_cs, st_slow, t_accum)`` on the
   fused coarsest level; a statistics state's ``n_lt``, ``avg_lt``,
   ``S_k`` and ``ring``;
-* ``utils.statistics.record_block``, the statistics' update, which a
-  control or a fault replaces for a run;
 * ``ops.schwinger_twolevel.schwinger_twolevel_chain`` (K4) and
   ``ops.schwinger.schwinger_sweep_chain`` (K3), the module attributes
   that ``_chunk`` binds when it builds a level's chunk function.
+
+Shared by every path: ``build_kernels`` (``ops._cuda.build``, which
+builds the kernel library into the package's ``_build/``, keyed by a
+hash of the sources) and ``record_replaced``
+(``utils.statistics.record_block``, the statistics' update, which a
+control or a fault replaces for a run).
 """
 
 from __future__ import annotations
@@ -84,8 +89,9 @@ def make_mlmc(cfg: dict, n_samples: int):
             n_burnin=hb["n_burnin"], use_pallas=True)
 
     if cfg["coarsesampler"] != "heatbath":
-        raise ValueError(f"coarse sampler {cfg['coarsesampler']!r}: the "
-                         f"harness builds heat-bath coarse chains only")
+        from perfbench.harness import CellError
+        raise CellError(f"coarse sampler {cfg['coarsesampler']!r}: the "
+                        f"fused path builds heat-bath coarse chains only")
     mlmc = cfg["multilevelmc"]
     return MonteCarloMultiLevel(
         act, qoi_2d_susceptibility, coarse_sampler_factory=factory,
@@ -111,14 +117,15 @@ def set_up(mc, seed: int, n_chains: int, dtype, device):
 def levels(mc):
     """Per level, finest first: its kernel ("k4" on a fine level, "k3" on
     the coarsest), fine lattice (Mt, Mx), beta, t_sub and recorded samples
-    a launch.  Raises where a level does not run fused: the cells measure
-    the fused kernels."""
+    a launch.  Raises ``harness.CellError`` where a level does not run
+    fused: the fused path measures the fused kernels."""
     out = []
     L = mc.n_level
     for ell in range(L):
         if not mc._is_fused(ell):
-            raise RuntimeError(f"level {ell} does not run fused on this "
-                               f"device: no cell of this benchmark")
+            from perfbench.harness import CellError
+            raise CellError(f"level {ell} does not run fused on this "
+                            f"device: not the fused path")
         lat = mc.actions[ell].lattice
         out.append({"kind": "k3" if ell == L - 1 else "k4",
                     "Mt": lat.Mt_lat, "Mx": lat.Mx_lat,

@@ -5,15 +5,39 @@ A cell ``<config>.<traffic>`` of ``BENCHMARK.json`` names a configuration
 (``configs/<name>.json``: the lattice, couplings, hierarchy, samplers and
 the check's steps and limits) and a traffic mix (``traffic/<name>.json``:
 the chains).  Each per-layer metric is read by ``metrics/<name>.py``.
-The harness finds all three by name, so a configuration, a mix or a
-metric is added as a file.
+A configuration's ``path`` names its run path, ``paths/<name>.py``
+(``fused`` where it names none).  The harness finds all four by name, so
+a configuration, a mix, a metric or a run path is added as a file.
+
+A run path holds the program's names that its cell calls, its check and
+the reference that check uses.  The harness reaches the program only
+through it:
+
+* ``make_mlmc(cfg, n_samples)``: the program's ``MonteCarloMultiLevel``;
+* ``set_up(mc, seed, n_chains, dtype, device)``: (generator, the carries
+  of every level, finest first) after the set-up a user's run pays;
+* ``levels(mc)``: per level, finest first, a dict with ``kind``, ``Mt``,
+  ``Mx``, ``beta``, ``t_sub`` (None where the level subsamples by its own
+  clock) and ``chunk`` (recorded samples a chunk call);
+* ``chunk_functions(mc, wrap)``: each level's ``chunk(seed, carry,
+  n_active) -> (carry, ybar)``, with the call the path taps passed
+  through ``wrap(ell, kind, fn)`` (a kernel on the fused path; an
+  unfused path may tap the chunk function itself);
+* ``with_fresh_y(mc, ell, carry, n_chains, dtype, device)``,
+  ``y_stats(mc, ell, carry)``: a level's carry with its Y statistics
+  started empty, and its Y statistics;
+* ``timings(mc)``: the set-up's seconds by phase;
+* ``judge(cfg, t_sub, kept, recorded, expected)``: the check's numbers,
+  each the largest over the levels, and each level's own; the names are
+  those of the configuration's ``check.limits``;
+* optionally ``hooks(mode)``: a control's or fault's ``wrap`` and
+  ``record`` for ``control.py``, None for a mode it cannot plant.
 
 The window runs rounds.  A round records the same number of samples a
 chain on every level, one chunk of the longest level, coarsest first,
-through the level chunk functions of the program's
-``MonteCarloMultiLevel``, and synchronises after each level's batch.
-Rounds start until ``seconds`` have passed; the window ends with the
-last round.
+through the path's level chunk functions, and synchronises after each
+level's batch.  Rounds start until ``seconds`` have passed; the window
+ends with the last round.
 """
 
 from __future__ import annotations
@@ -21,6 +45,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +62,8 @@ BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 #: top-level modules no run may load: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "mlmcpathintegral_tpu")
+#: a name of the benchmark (a run path's among them)
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 class CellError(RuntimeError):
@@ -61,6 +88,21 @@ def load_cell(name: str, root: Path = ROOT):
     end_to_end = [m for m in bench["end_to_end"]
                   if name in m.get("workloads", [name])]
     return work, cfg, traffic, end_to_end, per_layer
+
+
+def load_path(cfg: dict, root: Path = ROOT):
+    """The configuration's run path: the module ``perfbench/paths/<name>.py``
+    of its ``path`` (``fused`` where it names none).  Raises ``CellError``
+    where no such file is found."""
+    name = cfg.get("path", "fused")
+    file = root / "perfbench" / "paths" / f"{name}.py"
+    if not NAME.fullmatch(name) or not file.is_file():
+        raise CellError(f"no run path {name!r} (perfbench/paths/{name}.py)")
+    spec = importlib.util.spec_from_file_location(
+        f"perfbench_path_{name.replace('.', '_')}", file)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metric_reader(name: str, root: Path = ROOT):
@@ -98,8 +140,11 @@ def chunk_seed(gen):
 
 
 class Tap:
-    """Keeps the inputs and outputs of the kernel calls of one checked
-    chunk a level: the harness arms it before a chunk it may check."""
+    """Keeps the inputs and outputs of the tapped calls of one checked
+    chunk a level: the harness arms it before a chunk it may check, and
+    the first tapped call of that level after arming is kept, once per
+    armed chunk.  The run path decides which call it taps (see the
+    module's docstring)."""
 
     def __init__(self):
         self.armed = None          # the level whose next call is kept
@@ -126,17 +171,25 @@ class Run:
     notes: list = field(default_factory=list)
 
     def roofline(self, kernels, bound_s, launches):
-        """100 x bound / device time of ``kernels`` over the window; None
-        without a trace or where the trace's launches of them are not the
-        window's."""
+        """100 x bound / device time of ``kernels`` over the window, the
+        bound ``bound_s`` of the window's ``launches`` of them.  The
+        profiler now and then loses one launch's record (seen on the
+        card: one of 1342 K4 launches in a 51 s window): where at most
+        one in a thousand, or one, lacks its record, the bound is taken
+        over the traced share of the launches, so that time and work
+        cover the same launches (exact where they are of one shape).
+        None without a trace, with more launches lost, or with more
+        traced than run."""
         if self.trace is None:
             return None
         t, n = self.trace.kernel_s(kernels)
-        if n != launches or t <= 0.0:
+        lost = launches - n
+        if lost:
             self.notes.append(f"{kernels[0]}: {n} traced launches, "
                               f"{launches} run")
+        if not 0 <= lost <= max(1, launches // 1000) or t <= 0.0:
             return None
-        return 100.0 * bound_s / t
+        return 100.0 * bound_s * (n / launches) / t
 
 
 def power_limit():
@@ -157,18 +210,20 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def run_window(mc, fns, carries, levels, per_round, seed_for, pick, tap,
-               device, *, seconds=math.inf, max_rounds=None, spans=None):
-    """The timed window: rounds of ``per_round`` samples a chain on every
-    level, coarsest first, each level's batch synchronised.  Rounds start
-    until ``seconds`` have passed (or ``max_rounds`` ran).  ``carries`` (a
-    list, finest first) is advanced in place; ``levels`` gathers each
-    level's host seconds and launches; ``seed_for(round, level)`` gives
-    each chunk's seed pair; ``spans``, where given, gathers the host spans
-    ``(start_ns, end_ns, name)`` on the wall clock, the window's first.
-    Returns (rounds, seconds, the checked chunk of each level:
-    ``{level: {"call": (args, kwargs, outputs), "before": Y statistics,
-    "after": Y statistics}}``)."""
+def run_window(path, mc, fns, carries, levels, per_round, seed_for, pick,
+               tap, device, *, seconds=math.inf, max_rounds=None,
+               spans=None):
+    """The timed window of run path ``path``: rounds of ``per_round``
+    samples a chain on every level, coarsest first, each level's batch
+    synchronised.  Rounds start until ``seconds`` have passed (or
+    ``max_rounds`` ran).  ``carries`` (a list, finest first) is advanced
+    in place; ``levels`` gathers each level's host seconds and launches;
+    ``seed_for(round, level)`` gives each chunk's seed pair; ``spans``,
+    where given, gathers the host spans ``(start_ns, end_ns, name)`` on
+    the wall clock, the window's first.  Returns (rounds, seconds, the
+    checked chunk of each level: ``{level: {"call": (args, kwargs,
+    outputs) of its tapped call, "before": Y statistics, "after": Y
+    statistics}}``)."""
     L = len(levels)
     kept, rounds = {}, 0
     w0 = time.time_ns()
@@ -186,13 +241,13 @@ def run_window(mc, fns, carries, levels, per_round, seed_for, pick, tap,
                 n = min(lv["chunk"], per_round - done)
                 if arm and done == 0 and n == lv["chunk"]:
                     tap.armed = ell
-                    before = drive.y_stats(mc, ell, carries[ell])
+                    before = path.y_stats(mc, ell, carries[ell])
                 carries[ell], _ = fns[ell](seed_for(rounds, ell),
                                            carries[ell], n)
                 if ell in tap.pending:
                     round_kept[ell] = {
                         "call": tap.pending.pop(ell), "before": before,
-                        "after": drive.y_stats(mc, ell, carries[ell])}
+                        "after": path.y_stats(mc, ell, carries[ell])}
                 done += n
                 lv["launches"] += 1
             ns1, td1 = time.time_ns(), time.monotonic()
@@ -219,8 +274,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
              wrap=None, record=None):
     """Run one cell once; returns (result dict, info dict).  ``device``
     "cpu" runs the program's plain versions (the tests).  A control or a
-    fault replaces part of the program: ``wrap(tap)`` returns the kernel
-    wrapper of ``drive.chunk_functions`` in place of the tap's own (it
+    fault replaces part of the program: ``wrap(tap)`` returns the wrapper
+    of the run path's ``chunk_functions`` in place of the tap's own (it
     must still call the tap), ``record`` the statistics' update
     (``drive.record_replaced``) for the whole run."""
     with drive.record_replaced(record):
@@ -230,6 +285,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
 
 def _run_cell(name, seed, seconds, trace, *, t_start, device, root, wrap):
     work, cfg, traffic, end_to_end, per_layer = load_cell(name, root)
+    path = load_path(cfg, root)
     device = torch.device(device)
     dtype = getattr(torch, cfg["dtype"])
     C = int(traffic["chains"])
@@ -238,15 +294,15 @@ def _run_cell(name, seed, seconds, trace, *, t_start, device, root, wrap):
         torch.cuda.reset_peak_memory_stats(device)
 
     setup_seed, seed_gen, pick = seed_streams(seed)
-    mc = drive.make_mlmc(cfg, n_samples=C)
-    _, carries = drive.set_up(mc, setup_seed, C, dtype, device)
-    levels = drive.levels(mc)
+    mc = path.make_mlmc(cfg, n_samples=C)
+    _, carries = path.set_up(mc, setup_seed, C, dtype, device)
+    levels = path.levels(mc)
     L = len(levels)
     per_round = max(lv["chunk"] for lv in levels)
-    carries = [drive.with_fresh_y(mc, ell, carries[ell], C, dtype, device)
+    carries = [path.with_fresh_y(mc, ell, carries[ell], C, dtype, device)
                for ell in range(L)]
     tap = Tap()
-    fns = drive.chunk_functions(mc, wrap(tap) if wrap else tap.wrap)
+    fns = path.chunk_functions(mc, wrap(tap) if wrap else tap.wrap)
     for lv in levels:
         lv.update(span_s=0.0, dispatch_s=0.0, launches=0)
     sync(device)
@@ -261,7 +317,7 @@ def _run_cell(name, seed, seconds, trace, *, t_start, device, root, wrap):
         profiler.__enter__()
         spans = []
     rounds, window_s, kept = run_window(
-        mc, fns, carries, levels, per_round,
+        path, mc, fns, carries, levels, per_round,
         lambda r, ell: chunk_seed(seed_gen), pick, tap, device,
         seconds=seconds, spans=spans)
     trace_obj, trace_s = None, {}
@@ -284,7 +340,7 @@ def _run_cell(name, seed, seconds, trace, *, t_start, device, root, wrap):
     samples = C * per_round * rounds
     recorded = []
     for ell, lv in enumerate(levels):
-        st = drive.y_stats(mc, ell, carries[ell])
+        st = path.y_stats(mc, ell, carries[ell])
         var, tau, n = estimate.level_moments(
             st.avg_lt.cpu(), st.S_k.cpu(), int(st.n_lt))
         recorded.append(n)
@@ -309,7 +365,7 @@ def _run_cell(name, seed, seconds, trace, *, t_start, device, root, wrap):
         for m in end_to_end:
             v, unit = e2e[m["name"]]
             metrics[m["name"]] = {"value": v, "unit": unit}
-    timings = drive.timings(mc)
+    timings = path.timings(mc)
     info = {
         "workload": name, "seed": seed, "rounds": rounds,
         "samples_per_round": per_round, "chains": C,
@@ -342,7 +398,7 @@ def _run_cell(name, seed, seconds, trace, *, t_start, device, root, wrap):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.monotonic()
-    numbers, per_level = check.judge(cfg, t_sub, kept, recorded, expected)
+    numbers, per_level = path.judge(cfg, t_sub, kept, recorded, expected)
     correct, table, failed = check.verdict(numbers, per_level,
                                            cfg["check"]["limits"])
     info["check_s"] = time.monotonic() - t_check

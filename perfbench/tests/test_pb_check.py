@@ -19,7 +19,8 @@ from conftest import ROOT, TINY, make_tiny_root
 def test_sound_passes_control_and_faults_fail(tiny_root, mode):
     res, info = harness.run_cell(TINY, 21, 0.01, False,
                                  t_start=time.monotonic(), device="cpu",
-                                 root=tiny_root, **control.hooks(mode))
+                                 root=tiny_root,
+                                 **control.cell_hooks(TINY, mode, tiny_root))
     assert res["correct"] is (mode == "sound"), res["check"]
     assert list(res["check"]) == list(check.NUMBERS)
     if mode == "sound":
@@ -40,6 +41,21 @@ def test_no_checked_chunk_is_not_correct():
     assert not ok and failed == 2
     numbers, levels = check.judge(cfg, [8, 8], {}, [5, 10], [10, 10])
     assert numbers["samples_missing"] == 0.5
+
+
+def test_verdict_reads_every_limit():
+    numbers = {"a": 0.0, "b": 0.5}
+    levels = [dict(numbers), {"a": 0.0, "b": 0.0}]
+    ok, table, failed = check.verdict(numbers, levels, {"b": 0.1, "a": 0.0})
+    assert not ok and failed == 1 and list(table) == ["b", "a"]
+    # a number that the limits name and the judge omits, overall or on a
+    # level, and a number with no limit, pass unread: refused
+    for nums, lvs, limits in (
+            ({"a": 0.0}, [{"a": 0.0}], {"a": 0.0, "b": 0.0}),
+            (numbers, [{"a": 0.0}], {"a": 0.0, "b": 0.0}),
+            (numbers, levels, {"a": 0.0})):
+        with pytest.raises(harness.CellError):
+            check.verdict(nums, lvs, limits)
 
 
 @pytest.mark.chip
@@ -66,5 +82,6 @@ def test_control_fails_on_the_card(card, tmp_path, mode):
     root = make_tiny_root(tmp_path)
     res, _ = harness.run_cell(TINY, 4000000002, 0.01, False,
                               t_start=time.monotonic(), device="cuda",
-                              root=root, **control.hooks(mode))
+                              root=root,
+                              **control.cell_hooks(TINY, mode, root))
     assert res["correct"] is False

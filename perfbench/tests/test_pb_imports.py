@@ -17,7 +17,9 @@ from perfbench import (check, control, drive, estimate, harness, trace,
                        work)
 from perfbench.reference import physics, schwinger
 root = Path({tiny!r})
-for m in harness.load_cell({cell!r}, root)[4]:
+_, cfg, _, _, per_layer = harness.load_cell({cell!r}, root)
+harness.load_path(cfg, root)
+for m in per_layer:
     harness.metric_reader(m["name"], root)
 harness.run_cell({cell!r}, 1, 0.01, False, t_start=time.monotonic(),
                  device="cpu", root=root)

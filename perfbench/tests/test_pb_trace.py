@@ -2,7 +2,9 @@
 time by kernel, and idle gaps by the host span around them."""
 
 import numpy as np
+import pytest
 
+from perfbench.harness import Run
 from perfbench.trace import Trace, merged, short_name
 
 EVENTS = [("k1", 10, 20), ("k2", 15, 30), ("k1", 40, 50),
@@ -35,3 +37,19 @@ def test_trace_by_hand():
 def test_empty_trace():
     t = Trace([], 0, 100, [])
     assert t.busy_s == 0.0 and t.idle_gaps() == [["host", 100e-9]]
+
+
+@pytest.mark.parametrize("traced, want", [(2000, 50.0), (1999, 50.0),
+                                          (1998, 50.0), (1997, None),
+                                          (2001, None)])
+def test_roofline_over_the_traced_launches(traced, want):
+    """The bound over the traced share of the launches: a launch or one
+    in a thousand may lack its record, with time and work over the same
+    launches; more lost, or more traced than run, read nothing."""
+    events = [("k", 10 * i, 10 * i + 4) for i in range(traced)]
+    run = Run(chains=1, window_s=1.0, rounds=1, levels=[],
+              trace=Trace(events, 0, 10 * 2001, []))
+    # each launch takes 4 ns on the device and is bound at 2 ns
+    got = run.roofline(["k"], 2000 * 2e-9, 2000)
+    assert got == pytest.approx(want) if want else got is None
+    assert bool(run.notes) is (traced != 2000)

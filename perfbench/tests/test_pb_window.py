@@ -36,7 +36,7 @@ def test_window_equals_evaluate(tiny_root):
     tap = harness.Tap()
     fns = drive.chunk_functions(mc, tap.wrap)
     rounds, _, kept = harness.run_window(
-        mc, fns, carries, levels, chunk, seed_for,
+        drive, mc, fns, carries, levels, chunk, seed_for,
         np.random.default_rng(0), tap, cpu, max_rounds=N_ROUNDS)
     assert rounds == N_ROUNDS and set(kept) == set(range(L))
 
@@ -67,7 +67,7 @@ def test_fresh_y_counts_the_window_alone(tiny_root):
     fns = drive.chunk_functions(mc, tap.wrap)
     chunk = levels[0]["chunk"]
     gen = torch.Generator().manual_seed(1)
-    harness.run_window(mc, fns, carries, levels, chunk,
+    harness.run_window(drive, mc, fns, carries, levels, chunk,
                        lambda r, ell: harness.chunk_seed(gen),
                        np.random.default_rng(1), tap, cpu, max_rounds=2)
     for ell, lv in enumerate(levels):
